@@ -8,15 +8,25 @@ the same path:
                              nearest neighbours, GICP.
 - ``ops.cuda``             — the hand-written Hopper kernels (CUDA C++
                              sources in ``csrc/``) and their build.
-- ``models``               — the odometry step, the fused SLAM step and the
-                             TSDF backend.
+- ``models``               — the odometry step, the fused SLAM step, the
+                             TSDF and occupancy backends, the ESDF and the
+                             sparse keyframe map.
 - ``runtime.pipeline``     — the host-side ``OdometryPipeline``.
-- ``io.replay``            — dataset replay over the port's pipeline.
+- ``io``                   — dataset replay, the MulRan reader, the PLY /
+                             PCD / TUM writers and surface-nets meshing.
+- ``config``, ``utils.synthetic`` — the configuration dataclasses and the
+                             synthetic world simulator.
 - ``convert``              — state carried across from / to the JAX package.
 
 The JAX package stays the reference. The port imports ``torch`` and numpy,
-never ``jax``; the only modules of the JAX package it reuses are its
-JAX-free ones (``config.params``, ``utils.synthetic``, ``io.mulran``).
+never ``jax`` and nothing of the JAX package: where it needs one of that
+package's numpy-only modules (``config.params``, ``utils.synthetic``,
+``io.mulran``, ``io.export``) it keeps its own copy, which
+``tests/test_torch_copies.py`` holds to the original.
+
+Entry points run on the card unless the caller names another device: a
+``device`` argument left at ``None`` means ``device()``, which raises where
+there is no card (the tests pass ``"cpu"``).
 
 Every coordinate product in the JAX package runs at full f32
 (``precision=HIGHEST``). On Hopper the same trap is TF32, so it is turned
@@ -40,3 +50,8 @@ def device() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("noetic_slam_tpu_torch.device(): no CUDA device")
     return torch.device("cuda")
+
+
+def resolve_device(dev=None) -> torch.device:
+    """``dev`` as a ``torch.device``; ``None`` means the card (``device()``)."""
+    return device() if dev is None else torch.device(dev)

@@ -1,7 +1,7 @@
-"""The configuration surface. The JAX package's ``config.params`` is pure
-Python (frozen dataclasses), so the port shares it rather than copying it."""
+"""The configuration surface: frozen dataclasses and ``load_config``
+(``config.params``, the port's own copy of the JAX package's)."""
 
-from noetic_slam_tpu.config.params import (  # noqa: F401
+from noetic_slam_tpu_torch.config.params import (  # noqa: F401
     CapacityConfig,
     DlioConfig,
     ExtrinsicsConfig,
@@ -10,6 +10,7 @@ from noetic_slam_tpu.config.params import (  # noqa: F401
     ImuConfig,
     KeyframeConfig,
     MapConfig,
+    OccupancyConfig,
     PreprocConfig,
     SubmapConfig,
     TsdfConfig,

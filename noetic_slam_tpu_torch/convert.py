@@ -1,9 +1,9 @@
 """State carried across between the JAX package and the port.
 
-The odometry and TSDF states are this system's "weights": the tests run
-JAX steps to a mid-run state, fetch it as numpy arrays, carry it into the
-port with ``odom_state_from_numpy`` / ``tsdf_state_from_numpy``, and run
-one step of both implementations from the same state. ``*_to_numpy`` is
+The odometry and map states (TSDF or occupancy) are this system's
+"weights": the tests run JAX steps to a mid-run state, fetch it as numpy
+arrays, carry it into the port with ``*_state_from_numpy``, and run one
+step of both implementations from the same state. ``*_to_numpy`` is
 the reverse. Fields are matched by name; JAX fields the port does not
 carry (the grid-NN index) are ignored.
 """
@@ -15,6 +15,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from noetic_slam_tpu_torch.models.occupancy import OccupancyState
 from noetic_slam_tpu_torch.models.odometry import OdomState
 from noetic_slam_tpu_torch.models.tsdf import TsdfState
 
@@ -53,4 +54,15 @@ def odom_state_to_numpy(state: OdomState) -> dict:
 
 def tsdf_state_to_numpy(state: TsdfState) -> dict:
     """{field: ndarray} of a port ``TsdfState``."""
+    return _to_numpy(state)
+
+
+def occupancy_state_from_numpy(state, device) -> OccupancyState:
+    """An ``OccupancyState`` on ``device`` from a JAX ``OccupancyState``
+    (or any mapping / NamedTuple of arrays with its field names)."""
+    return _from_numpy(OccupancyState, state, device)
+
+
+def occupancy_state_to_numpy(state: OccupancyState) -> dict:
+    """{field: ndarray} of a port ``OccupancyState``."""
     return _to_numpy(state)

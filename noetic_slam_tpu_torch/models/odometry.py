@@ -27,7 +27,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from noetic_slam_tpu_torch import resolve_device
 from noetic_slam_tpu_torch.config import DlioConfig
+from noetic_slam_tpu_torch.models import occupancy as occ_mod
 from noetic_slam_tpu_torch.models import tsdf as tsdf_mod
 from noetic_slam_tpu_torch.ops import gicp as gicp_ops
 from noetic_slam_tpu_torch.ops import imu as imu_ops
@@ -187,10 +189,11 @@ class StepOutput(NamedTuple):
     num_corr: Tensor
 
 
-def init_state(cfg: DlioConfig, device, q0=None, ba0=None, bg0=None
+def init_state(cfg: DlioConfig, device=None, q0=None, ba0=None, bg0=None
                ) -> OdomState:
-    """Fresh state on ``device``; q0/ba0/bg0 from the host-side IMU
-    calibration."""
+    """Fresh state on ``device`` (``None``: the card); q0/ba0/bg0 from the
+    host-side IMU calibration."""
+    device = resolve_device(device)
     cap = cfg.capacity
     K, Nk = cap.max_keyframes, cap.max_ds_points
     S = cap.max_submap_kf * Nk
@@ -707,26 +710,41 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None):
     return step
 
 
+def make_map_fuse(cfg: DlioConfig):
+    """The fused step's map update: ``fuse(map_state, out) -> map_state``.
+
+    The map backend follows ``cfg.map_backend``: ``"tsdf"`` (kernel B) or
+    ``"occupancy"`` (kernel C). Skipped scans are gated by zeroing the
+    sample weights or deltas, as in JAX (no host read)."""
+    if cfg.map_backend == "occupancy":
+        def fuse(map_state, out: StepOutput):
+            with record_function("occupancy.fuse"):
+                pos, delta = occ_mod._beam_samples(
+                    cfg.occupancy, out.world_xyz, out.world_valid,
+                    out.lidar_p)
+                delta = delta * out.processed.to(delta.dtype)
+                return occ_mod._integrate_deltas(cfg.occupancy, map_state,
+                                                 pos, delta)
+    elif cfg.map_backend == "tsdf":
+        def fuse(map_state, out: StepOutput):
+            with record_function("tsdf.fuse"):
+                pos, sdf, w = tsdf_mod._ray_samples(
+                    cfg.tsdf, out.world_xyz, out.world_valid, out.lidar_p)
+                w = w * out.processed.to(w.dtype)
+                return tsdf_mod._integrate_samples(cfg.tsdf, map_state, pos,
+                                                   sdf, w)
+    else:
+        raise ValueError(f"map_backend={cfg.map_backend!r}: expected "
+                         "'tsdf' or 'occupancy'")
+    return fuse
+
+
 def make_slam_step(cfg: DlioConfig, syncs: HostSyncs | None = None):
-    """Odometry + dense-map fusion:
+    """Odometry + dense-map fusion (``make_map_fuse``):
     ``step((odom_state, map_state), inp) -> ((odom_state, map_state), out)``.
-
-    Only the ``tsdf`` map backend is ported; skipped scans are gated by
-    zeroing the sample weights, as in JAX."""
-    if cfg.map_backend != "tsdf":
-        raise NotImplementedError(
-            f"map_backend={cfg.map_backend!r}: the torch port has the tsdf "
-            "backend only (ROADMAP Queue 1 item 11: models/occupancy.py "
-            "with kernel C)")
+    """
+    fuse = make_map_fuse(cfg)
     odo = make_odometry_step(cfg, syncs)
-
-    def fuse(map_state, out: StepOutput):
-        with record_function("tsdf.fuse"):
-            pos, sdf, w = tsdf_mod._ray_samples(cfg.tsdf, out.world_xyz,
-                                                out.world_valid, out.lidar_p)
-            w = w * out.processed.to(w.dtype)
-            return tsdf_mod._integrate_samples(cfg.tsdf, map_state, pos, sdf,
-                                               w)
 
     def step(carry, inp: StepInput):
         odom_state, map_state = carry

@@ -16,6 +16,12 @@ Porting notes:
 - The TPU-only reorder for the Pallas kernel (padding entries first, row
   groups) is not ported: kernel B takes the entries in rank order and
   skips those with no samples.
+- The directory and run part of a scan's fusion (``block_runs``) is shared
+  with the occupancy backend (``models/occupancy.py``), which gathers its
+  own channel and calls kernel C.
+- ``voxel_centers`` writes only the rows of allocated slots (JAX scatters
+  every padding key to slot C-1, a duplicate-index scatter that torch
+  does not order); the other rows are zero.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from noetic_slam_tpu_torch import resolve_device
 from noetic_slam_tpu_torch.config import TsdfConfig
 from noetic_slam_tpu_torch.ops.cuda.tsdf_kernel import (  # noqa: F401
     NO_CLAMP,
@@ -49,7 +56,9 @@ class TsdfState(NamedTuple):
     dropped: Tensor     # () int32 samples/blocks dropped for capacity
 
 
-def init_tsdf(cfg: TsdfConfig, device) -> TsdfState:
+def init_tsdf(cfg: TsdfConfig, device=None) -> TsdfState:
+    """An empty TSDF on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     C = cfg.max_blocks
     i32 = dict(dtype=torch.int32, device=device)
     return TsdfState(
@@ -105,6 +114,42 @@ def _lookup_join(ref_keys: Tensor, ref_vals: Tensor, q_keys: Tensor
     return out[C:]
 
 
+def _lookup(state, keys: Tensor) -> Tensor:
+    """Sorted-directory lookup: key -> payload slot (or -1), by the
+    sort-merge join at every batch size."""
+    return _lookup_join(state.dir_keys, state.dir_slots, keys)
+
+
+def allocate_blocks(state: TsdfState, want_keys: Tensor) -> TsdfState:
+    """Insert any unseen keys into the directory (sorted merge).
+
+    ``want_keys`` (A,) may hold duplicates and ``KEY_PAD``. New blocks take
+    payload slots from the running counter; beyond capacity they are
+    dropped and counted in ``dropped``."""
+    C = state.dir_keys.shape[0]
+    dev = want_keys.device
+    wk = torch.sort(want_keys.to(torch.int32)).values
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                       wk[1:] != wk[:-1]])
+    wk = torch.where(first, wk, KEY_PAD)
+    wk = torch.where(_lookup(state, wk) >= 0, KEY_PAD, wk)
+    wk = torch.sort(wk).values
+    live = wk != KEY_PAD
+    n_new = live.sum()
+    slot = state.num_blocks + torch.cumsum(live, 0) - 1
+    ok = live & (slot < C)
+    wk = torch.where(ok, wk, KEY_PAD)
+    slot = torch.where(ok, slot, 0).to(torch.int32)
+    keys, order = torch.sort(torch.cat([state.dir_keys, wk]), stable=True)
+    slots = torch.cat([state.dir_slots, slot])[order]
+    num = torch.clamp(state.num_blocks + n_new, max=C)
+    return state._replace(
+        dir_keys=keys[:C].contiguous(), dir_slots=slots[:C].contiguous(),
+        num_blocks=num.to(torch.int32),
+        dropped=(state.dropped + n_new - (num - state.num_blocks)
+                 ).to(torch.int32))
+
+
 def _ray_samples(cfg: TsdfConfig, points: Tensor, valid: Tensor,
                  origin: Tensor):
     """Sample positions, SDF values and weights along each ray: a surface
@@ -141,59 +186,61 @@ def _ray_samples(cfg: TsdfConfig, points: Tensor, valid: Tensor,
     return pos.reshape(-1, 3), sdf.reshape(-1), w.reshape(-1)
 
 
-class BlockStream(NamedTuple):
-    """Kernel B's operands for one batch of samples: per candidate entry
-    the payload row, stream offset and count (count 0 = skip), and the
-    block-sorted sample stream."""
+class BlockRuns(NamedTuple):
+    """The shared block-stream skeleton's result for one batch of samples:
+    per candidate entry the payload row, stream offset and count (count 0 =
+    skip), and the block-major sort order of the samples."""
     rows: Tensor      # (A,) int32
     starts: Tensor    # (A,) int32
     cnts: Tensor      # (A,) int32
-    ivox: Tensor      # (S,) int32
-    w: Tensor         # (S,) f32
-    wd: Tensor        # (S,) f32 w * clipped sdf
+    order: Tensor     # (S,) int64 sample index per sorted position
 
 
-def block_stream(cfg: TsdfConfig, state: TsdfState, pos: Tensor,
-                 sdf: Tensor, w: Tensor) -> tuple[TsdfState, BlockStream]:
-    """Steps 1-2 of ``_integrate_samples``: the block-major sort of the
-    samples, the candidate blocks and their sample ranges, the directory
-    probe and the merge of new blocks. Returns the state with its new
-    directory (payload untouched) and kernel B's operands."""
-    C = state.weight.shape[0]
-    S = pos.shape[0]
-    dev = pos.device
-    vx = torch.floor(pos / cfg.voxel_size).to(torch.int32)
+def sample_keys(pos: Tensor, voxel_size: float, live: Tensor
+                ) -> tuple[Tensor, Tensor]:
+    """(block key (S,) int32, intra-block voxel (S,) int32) of each sample
+    position; samples without ``live`` get ``KEY_PAD``."""
+    vx = torch.floor(pos / voxel_size).to(torch.int32)
     b = vx >> 3
     intra = vx - (b << 3)
-    gk = _block_key(b)
-    # != 0: signed (de-)integration carries negative weights
-    gk = torch.where(w != 0.0, gk, KEY_PAD)
+    gk = torch.where(live, _block_key(b), KEY_PAD)
     ivox = intra[:, 0] + (intra[:, 1] << 3) + (intra[:, 2] << 6)
-    sdf_c = torch.clamp(sdf, -cfg.truncation, cfg.truncation)
+    return gk, ivox
 
-    # 1. block-major sort carrying the accumulands
+
+def block_runs(state, gk: Tensor, cap: int):
+    """The block-stream skeleton shared by the TSDF and occupancy backends:
+    the block-major sort of the samples' keys, the run boundaries, up to
+    ``cap`` candidate blocks with their sample ranges, the directory probe
+    and the merge of new blocks (beyond capacity: dropped and counted).
+
+    ``state`` is any map state with ``dir_keys``, ``dir_slots``,
+    ``num_blocks`` and ``dropped``. Returns it with the new directory
+    (payload untouched) and the ``BlockRuns``; each backend gathers its own
+    channels through ``order``."""
+    C = state.dir_keys.shape[0]
+    S = gk.shape[0]
+    dev = gk.device
+
+    # 1. block-major sort
     gk_s, order = torch.sort(gk, stable=True)
-    iv_s = ivox[order].contiguous()
-    w_s = w[order].contiguous()
-    ws_s = (w * sdf_c)[order].contiguous()
 
     # 2a. run boundaries; run starts compacted by a (stable) position sort
-    A = cfg.scan_block_cap
     first_blk = (torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                             gk_s[1:] != gk_s[:-1]]) & (gk_s != KEY_PAD))
     blk_rank = torch.cumsum(first_blk, 0) - 1
     n_runs = blk_rank[-1] + 1
     pos_key = torch.where(first_blk, blk_rank, S)
     pos_sorted = torch.sort(pos_key, stable=True).indices
-    k_take = min(A + 1, S)
-    pos_arr = torch.full((A + 1,), S, dtype=torch.int64, device=dev)
+    k_take = min(cap + 1, S)
+    pos_arr = torch.full((cap + 1,), S, dtype=torch.int64, device=dev)
     pos_arr[:k_take] = pos_sorted[:k_take]
-    pos_arr = torch.where(torch.arange(A + 1, device=dev) < n_runs,
+    pos_arr = torch.where(torch.arange(cap + 1, device=dev) < n_runs,
                           pos_arr, S)
-    rank_overflow = torch.clamp(n_runs - A, min=0)
+    rank_overflow = torch.clamp(n_runs - cap, min=0)
 
     # 2b. candidate keys + sample ranges
-    cand_pos = pos_arr[:A]
+    cand_pos = pos_arr[:cap]
     cand = torch.where(cand_pos < S, gk_s[torch.clamp(cand_pos, 0, S - 1)],
                        KEY_PAD)
     pad_start = (gk_s != KEY_PAD).sum()
@@ -201,7 +248,7 @@ def block_stream(cfg: TsdfConfig, state: TsdfState, pos: Tensor,
     cnt = torch.clamp(torch.minimum(pos_arr[1:], pad_start) - start, 0, S)
 
     # 2c. directory probe + merge of new rows
-    slot_probe = _lookup_join(state.dir_keys, state.dir_slots, cand)
+    slot_probe = _lookup(state, cand)
     hit = slot_probe >= 0
     is_new = (~hit) & (cand != KEY_PAD)
     n_new = is_new.sum()
@@ -221,13 +268,27 @@ def block_stream(cfg: TsdfConfig, state: TsdfState, pos: Tensor,
                             torch.where(ok_new, slot_new, -1))
 
     real = (slot_cand >= 0) & (cnt > 0)
-    stream = BlockStream(
+    runs = BlockRuns(
         rows=torch.where(real, slot_cand, 0).to(torch.int32),
         starts=torch.where(real, start, 0).to(torch.int32),
         cnts=torch.where(real, cnt, 0).to(torch.int32),
-        ivox=iv_s, w=w_s, wd=ws_s)
+        order=order)
     return state._replace(dir_keys=keys2, dir_slots=slots2, num_blocks=num2,
-                          dropped=dropped2), stream
+                          dropped=dropped2), runs
+
+
+def block_stream(cfg: TsdfConfig, state: TsdfState, pos: Tensor,
+                 sdf: Tensor, w: Tensor):
+    """Steps 1-2 of ``_integrate_samples``: ``block_runs`` on the samples
+    with a weight (``!= 0``: signed de-integration carries negative ones),
+    then the gather of the TSDF's channels into block order. Returns the
+    state with its new directory (payload untouched), the ``BlockRuns``
+    and the sorted stream ``(ivox, w, w·clip(sdf))``: kernel B's
+    operands."""
+    gk, ivox = sample_keys(pos, cfg.voxel_size, w != 0.0)
+    state, r = block_runs(state, gk, cfg.scan_block_cap)
+    wd = w * torch.clamp(sdf, -cfg.truncation, cfg.truncation)
+    return state, r, tuple(x[r.order].contiguous() for x in (ivox, w, wd))
 
 
 def _integrate_samples(cfg: TsdfConfig, state: TsdfState, pos: Tensor,
@@ -241,11 +302,11 @@ def _integrate_samples(cfg: TsdfConfig, state: TsdfState, pos: Tensor,
     3. the payload update of the candidate rows: kernel B on the card, its
        plain version on the CPU, in place.
     """
-    state, s = block_stream(cfg, state, pos, sdf, w)
+    state, r, stream = block_stream(cfg, state, pos, sdf, w)
     accumulate = (block_accumulate if state.weight.is_cuda
                   else block_accumulate_plain)
-    accumulate(state.weight, state.wsum, s.rows, s.starts, s.cnts, s.ivox,
-               s.w, s.wd, cfg.max_weight)
+    accumulate(state.weight, state.wsum, r.rows, r.starts, r.cnts, *stream,
+               cfg.max_weight)
     return state
 
 
@@ -254,3 +315,77 @@ def integrate(cfg: TsdfConfig, state: TsdfState, points: Tensor,
     """Fuse one world-frame cloud into the TSDF (payload in place)."""
     pos, sdf, w = _ray_samples(cfg, points, valid, origin)
     return _integrate_samples(cfg, state, pos, sdf, w)
+
+
+def integrate_signed(cfg: TsdfConfig, state: TsdfState, points: Tensor,
+                     valid: Tensor, origin: Tensor, sign) -> TsdfState:
+    """Fuse (sign = +1) or de-fuse (sign = -1) one cloud: the keyframe
+    archive's volume primitive. With ``cfg.max_weight >= NO_CLAMP`` the
+    payload is a pure sum, and the same cloud at the same origin subtracts
+    what it added (kernel B sums in a fixed order, so the cancellation
+    is exact to the rounding of the sums)."""
+    pos, sdf, w = _ray_samples(cfg, points, valid, origin)
+    return _integrate_samples(cfg, state, pos, sdf, w * sign)
+
+
+def rebuild_from_keyframes(cfg: TsdfConfig, kf_xyz: Tensor, kf_valid: Tensor,
+                           kf_pos: Tensor, kf_count: Tensor) -> TsdfState:
+    """Re-fuse the whole TSDF from the (deformed) keyframe clouds, each at
+    its keyframe position as the carving origin: the loop-closure
+    consistency path. One fusion per keyframe slot, on ``kf_xyz``'s
+    device; slots at or beyond ``kf_count`` are gated by zero sample
+    weights, as in JAX (no host read of the count)."""
+    state = init_tsdf(cfg, kf_xyz.device)
+    for k in range(kf_xyz.shape[0]):
+        pos, sdf, w = _ray_samples(cfg, kf_xyz[k], kf_valid[k], kf_pos[k])
+        w = w * (kf_count > k).to(w.dtype)
+        state = _integrate_samples(cfg, state, pos, sdf, w)
+    return state
+
+
+def slot_used(state) -> Tensor:
+    """(C,) bool: payload slots that hold an allocated block."""
+    C = state.dir_keys.shape[0]
+    used = torch.zeros(C + 1, dtype=torch.bool, device=state.dir_keys.device)
+    used.index_fill_(0, torch.where(state.dir_keys != KEY_PAD,
+                                    state.dir_slots.long(), C), True)
+    return used[:C]
+
+
+def voxel_centers(cfg, state) -> Tensor:
+    """World-space centres of every voxel in slot order: (C, 512, 3), so
+    that ``centers[slot]`` matches the payload's ``[slot]``. Rows of
+    unallocated slots are zero. ``cfg`` is any map config with a
+    ``voxel_size``; one (C, 512, 3) array is made and scaled in place."""
+    keys = state.dir_keys
+    C = keys.shape[0]
+    dev = keys.device
+    b = torch.stack([(keys & 0x7FF) - 1024, ((keys >> 11) & 0x7FF) - 1024,
+                     ((keys >> 22) & 0x3FF) - 512], dim=-1)       # (C, 3)
+    used = keys != KEY_PAD
+    # block corner per slot (a dump row takes the padding keys)
+    corner = torch.zeros((C + 1, 3), dtype=torch.float32, device=dev)
+    corner.index_copy_(0, torch.where(used, state.dir_slots.long(), C),
+                       (b * BLOCK).to(torch.float32))
+    iv = torch.arange(BLOCK_VOLUME, device=dev)
+    intra = torch.stack([iv & 7, (iv >> 3) & 7, (iv >> 6) & 7], dim=-1)
+    # (corner + intra + 0.5) is exact in f32, so this equals JAX's
+    # (vox + 0.5) * v bit for bit
+    centers = corner[:C, None, :] + (intra.to(torch.float32) + 0.5)[None]
+    centers.mul_(cfg.voxel_size)
+    centers.mul_(slot_used(state)[:, None, None])
+    return centers
+
+
+def extract_surface(cfg: TsdfConfig, state: TsdfState,
+                    iso_band: float = 0.5, min_weight: float = 1.0):
+    """Surface points: centres of voxels near the zero crossing. Returns
+    (points (C*512, 3), tsdf values (C*512,), mask (C*512,)); the host
+    compacts."""
+    centers = voxel_centers(cfg, state).reshape(-1, 3)
+    d = tsdf_distance(cfg, state).reshape(-1)
+    w = state.weight.reshape(-1)
+    mask = ((w >= min_weight) & (torch.abs(d) < iso_band * cfg.voxel_size
+                                 * 2.0)
+            & slot_used(state).repeat_interleave(BLOCK_VOLUME))
+    return centers, d, mask

@@ -46,6 +46,9 @@ _SIGNATURES = {
     # no_clamp, stream
     "nst_tsdf_accum_launch": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                               _F, _I, _P],
+    # logodds, C, rows, starts, cnts, A, ivox, delta, S, l_min, l_max, stream
+    "nst_logodds_accum_launch": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _F, _F,
+                                 _P],
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""Kernel B: TSDF block accumulation (``csrc/tsdf_accum.cu``) and its plain
+"""Kernel B: TSDF block accumulation (``csrc/block_accum.cu``) and its plain
 version.
 
 Replaces ``noetic_slam_tpu/ops/pallas/tsdf_kernel.py`` (``_accum_kernel``,
@@ -13,7 +13,8 @@ others. Untouched rows are never read or written. The payload is updated
 in place.
 
 What bounds it on the card, and what the design does about it: see the
-note at the top of ``csrc/tsdf_accum.cu``. The TPU version's 8-row group
+note at the top of ``csrc/block_accum.cu``, whose kernel template B shares
+with kernel C (``ops/cuda/logodds_kernel.py``). The TPU version's 8-row group
 scratch and its padding-first ordering contract are not carried over.
 """
 
@@ -29,14 +30,64 @@ BLOCK_VOLUME = 512
 NO_CLAMP = 1e30
 
 
-def _check(name: str, x: Tensor, dtype, ndim: int) -> None:
+def check_operand(fn: str, name: str, x: Tensor, dtype, ndim: int) -> None:
+    """Raise unless ``x`` is a contiguous CUDA tensor of ``dtype``/``ndim``."""
     if not x.is_cuda:
-        raise ValueError(f"block_accumulate: {name} must be a CUDA tensor")
+        raise ValueError(f"{fn}: {name} must be a CUDA tensor")
     if x.dtype != dtype or x.dim() != ndim:
-        raise ValueError(f"block_accumulate: {name} must be {dtype} with "
-                         f"{ndim} dims, got {x.dtype} {tuple(x.shape)}")
+        raise ValueError(f"{fn}: {name} must be {dtype} with {ndim} dims, "
+                         f"got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
-        raise ValueError(f"block_accumulate: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def check_entries(fn: str, payload: Tensor, rows: Tensor, starts: Tensor,
+                  cnts: Tensor, ivox: Tensor, channels: dict) -> None:
+    """The checks kernels B and C share: a (C, 512) f32 payload, int32
+    entry arrays of one length, an int32 ``ivox`` and f32 channels of the
+    stream's length."""
+    check_operand(fn, "payload", payload, torch.float32, 2)
+    for name, x in (("rows", rows), ("starts", starts), ("cnts", cnts),
+                    ("ivox", ivox)):
+        check_operand(fn, name, x, torch.int32, 1)
+    for name, x in channels.items():
+        check_operand(fn, name, x, torch.float32, 1)
+        if x.shape[0] != ivox.shape[0]:
+            raise ValueError(f"{fn}: ivox/{name} lengths differ")
+    if payload.shape[1] != BLOCK_VOLUME:
+        raise ValueError(f"{fn}: payload must be (C, {BLOCK_VOLUME}), got "
+                         f"{tuple(payload.shape)}")
+    if starts.shape[0] != rows.shape[0] or cnts.shape[0] != rows.shape[0]:
+        raise ValueError(f"{fn}: rows/starts/cnts lengths differ")
+
+
+def entry_addresses(starts: Tensor, cnts: Tensor) -> tuple[Tensor, Tensor]:
+    """(entry index, stream position) of every sample of an entry with
+    ``cnts > 0``, entry by entry: int64 arrays of length ``Σ max(cnts, 0)``."""
+    dev = starts.device
+    cnt = torch.clamp(cnts, min=0).long()
+    ent = torch.repeat_interleave(torch.arange(cnt.shape[0], device=dev), cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    pos = (starts.long()[ent] + torch.arange(ent.shape[0], device=dev)
+           - first[ent])
+    return ent, pos
+
+
+def entry_sums(starts: Tensor, cnts: Tensor, ivox: Tensor,
+               channels: tuple) -> tuple:
+    """The plain versions' per-entry sums: ``(A, 512)`` per channel, each
+    entry's samples added into its own zeroed row with ``index_add_``
+    (entries with ``cnts <= 0`` stay zero)."""
+    A = starts.shape[0]
+    dev = ivox.device
+    ent, pos = entry_addresses(starts, cnts)
+    flat = ent * BLOCK_VOLUME + ivox[pos].long()
+    out = []
+    for x in channels:
+        acc = torch.zeros(A * BLOCK_VOLUME, dtype=torch.float32, device=dev)
+        acc.index_add_(0, flat, x[pos])
+        out.append(acc.view(A, BLOCK_VOLUME))
+    return tuple(out)
 
 
 def block_accumulate(weight: Tensor, wsum: Tensor, rows: Tensor,
@@ -45,24 +96,15 @@ def block_accumulate(weight: Tensor, wsum: Tensor, rows: Tensor,
     """Kernel B on the card; updates ``weight``/``wsum`` (C, 512) in place.
 
     CUDA tensors only; raises on anything else (no fallback)."""
-    _check("weight", weight, torch.float32, 2)
-    _check("wsum", wsum, torch.float32, 2)
-    for name, x in (("rows", rows), ("starts", starts), ("cnts", cnts),
-                    ("ivox", ivox)):
-        _check(name, x, torch.int32, 1)
-    _check("w", w, torch.float32, 1)
-    _check("wd", wd, torch.float32, 1)
-    C, V = weight.shape
-    if V != BLOCK_VOLUME or wsum.shape != weight.shape:
-        raise ValueError(f"block_accumulate: payload must be (C, "
-                         f"{BLOCK_VOLUME}), got {tuple(weight.shape)} / "
-                         f"{tuple(wsum.shape)}")
+    check_entries("block_accumulate", weight, rows, starts, cnts, ivox,
+                  {"w": w, "wd": wd})
+    check_operand("block_accumulate", "wsum", wsum, torch.float32, 2)
+    if wsum.shape != weight.shape:
+        raise ValueError(f"block_accumulate: weight/wsum shapes differ: "
+                         f"{tuple(weight.shape)} / {tuple(wsum.shape)}")
+    C = weight.shape[0]
     A = rows.shape[0]
     S = ivox.shape[0]
-    if starts.shape[0] != A or cnts.shape[0] != A:
-        raise ValueError("block_accumulate: rows/starts/cnts lengths differ")
-    if w.shape[0] != S or wd.shape[0] != S:
-        raise ValueError("block_accumulate: ivox/w/wd lengths differ")
     no_clamp = max_weight >= NO_CLAMP
     lib = _build.load()
     with torch.cuda.device(weight.device):
@@ -86,23 +128,11 @@ def block_accumulate_plain(weight: Tensor, wsum: Tensor, rows: Tensor,
     accumulators, then one update of the touched rows), same contract,
     in place. Sums each entry first and adds it to the row after, the
     kernel's association."""
-    A = rows.shape[0]
-    dev = weight.device
     real = cnts > 0
-    cnt = torch.where(real, cnts, 0).long()
-    ent = torch.repeat_interleave(torch.arange(A, device=dev), cnt)
-    first = torch.cumsum(cnt, 0) - cnt
-    pos = (torch.repeat_interleave(starts.long(), cnt)
-           + torch.arange(ent.shape[0], device=dev)
-           - torch.repeat_interleave(first, cnt))
-    flat = ent * BLOCK_VOLUME + ivox[pos].long()
-    acc_w = torch.zeros(A * BLOCK_VOLUME, dtype=torch.float32, device=dev)
-    acc_wd = torch.zeros_like(acc_w)
-    acc_w.index_add_(0, flat, w[pos])
-    acc_wd.index_add_(0, flat, wd[pos])
+    acc_w, acc_wd = entry_sums(starts, cnts, ivox, (w, wd))
     r = rows[real].long()
-    new_w = weight[r] + acc_w.view(A, BLOCK_VOLUME)[real]
-    new_wd = wsum[r] + acc_wd.view(A, BLOCK_VOLUME)[real]
+    new_w = weight[r] + acc_w[real]
+    new_wd = wsum[r] + acc_wd[real]
     if max_weight >= NO_CLAMP:
         weight[r] = new_w
         wsum[r] = new_wd

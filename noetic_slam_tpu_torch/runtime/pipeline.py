@@ -7,8 +7,8 @@ rebased to header-to-header deltas and packed into fixed-shape
 bulk by ``flush()``. ``process_scan`` raises ``NeedMoreImu`` while the IMU
 buffer does not cover the sweep end.
 
-Differences: the device is an explicit argument (``device="cuda"`` on the
-card, ``"cpu"`` in the tests); the step runs eagerly and updates the state
+Differences: the device is an argument (left at ``None``, the card; the
+tests pass ``"cpu"``); the step runs eagerly and updates the state
 in place; ``process_scans`` is a loop with ``process_scan``'s semantics
 (packs the whole batch first, so a batch without IMU coverage submits
 nothing); ``host_syncs`` counts the device->host reads that steer control
@@ -23,6 +23,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from noetic_slam_tpu_torch import resolve_device
 from noetic_slam_tpu_torch.config import DlioConfig
 from noetic_slam_tpu_torch.models.odometry import (
     OdomState,
@@ -31,6 +32,7 @@ from noetic_slam_tpu_torch.models.odometry import (
     make_odometry_step,
     make_slam_step,
 )
+from noetic_slam_tpu_torch.models.occupancy import init_occupancy
 from noetic_slam_tpu_torch.models.tsdf import init_tsdf
 from noetic_slam_tpu_torch.ops.gicp import HostSyncs
 
@@ -50,15 +52,21 @@ class TrajectoryEntry:
 
 
 class OdometryPipeline:
-    def __init__(self, cfg: DlioConfig | None = None, *, device,
+    def __init__(self, cfg: DlioConfig | None = None, *, device=None,
                  with_tsdf: bool = False):
         self.cfg = cfg or DlioConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.with_tsdf = with_tsdf
         self._syncs = HostSyncs()
         if with_tsdf:
             self._step = make_slam_step(self.cfg, self._syncs)
-            self.tsdf_state = init_tsdf(self.cfg.tsdf, self.device)
+            # tsdf_state holds whichever dense map cfg.map_backend selects
+            # (tsdf | occupancy); the JAX pipeline keeps the same name
+            if self.cfg.map_backend == "occupancy":
+                self.tsdf_state = init_occupancy(self.cfg.occupancy,
+                                                 self.device)
+            else:
+                self.tsdf_state = init_tsdf(self.cfg.tsdf, self.device)
         else:
             self._step = make_odometry_step(self.cfg, self._syncs)
             self.tsdf_state = None

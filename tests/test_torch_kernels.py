@@ -1,5 +1,5 @@
-"""Kernels A and B of the port against their plain versions, and the plain
-versions against numpy loops. This file imports no JAX, so that the tests
+"""Kernels A, B and C of the port against their plain versions, and the
+plain versions against numpy loops. This file imports no JAX, so that the tests
 marked ``cuda`` also run on a machine with a card and no JAX:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from noetic_slam_tpu_torch.ops.cuda import logodds_kernel as lk
 from noetic_slam_tpu_torch.ops.cuda import nn_kernel as nk
 from noetic_slam_tpu_torch.ops.cuda import tsdf_kernel as tk
 
@@ -94,6 +95,29 @@ def _numpy_accumulate(W, WS, rows, starts, cnts, ivox, w, wd, max_weight):
     return W, WS
 
 
+def _numpy_logodds(L, rows, starts, cnts, ivox, delta, l_min, l_max):
+    L = L.astype(np.float64).copy()
+    for r, s0, c in zip(rows, starts, cnts):
+        if c <= 0:
+            continue
+        acc = np.zeros(512)
+        np.add.at(acc, ivox[s0:s0 + c], delta[s0:s0 + c])
+        L[r] = np.clip(L[r] + acc, l_min, l_max)
+    return L
+
+
+def _delta_stream(rng, sign, C=64, A=24):
+    """``_stream``'s entries with occupancy deltas (hits and misses)."""
+    rows, starts, cnts, ivox, w, _ = _stream(rng, C, A)
+    delta = np.where(w > 0.5, 0.85, -0.4).astype(np.float32) * sign
+    return rows, starts, cnts, ivox, delta
+
+
+# (l_min, l_max, sign): the clamped update at the OccupancyConfig defaults,
+# and the unclamped signed one (the +-1e30 clip is the identity)
+LOGODDS_CASES = [(-2.0, 3.5, 1.0), (-lk.UNCLAMPED, lk.UNCLAMPED, -1.0)]
+
+
 def _payload(rng, C=64):
     W = rng.uniform(0, 4.0, (C, 512)).astype(np.float32)
     WS = (W * rng.uniform(-0.3, 0.3, (C, 512))).astype(np.float32)
@@ -131,6 +155,16 @@ def test_block_accumulate_plain_matches_numpy(rng, max_weight):
     np.testing.assert_allclose(to_np(WSt), want[1], rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("l_min,l_max,sign", LOGODDS_CASES)
+def test_logodds_accumulate_plain_matches_numpy(rng, l_min, l_max, sign):
+    L = rng.uniform(-2.0, 3.5, (64, 512)).astype(np.float32)
+    s = _delta_stream(rng, sign)
+    want = _numpy_logodds(L, *s, l_min, l_max)
+    Lt = to_torch(L)
+    lk.logodds_accumulate_plain(Lt, *(to_torch(a) for a in s), l_min, l_max)
+    np.testing.assert_allclose(to_np(Lt), want, rtol=TOL, atol=TOL)
+
+
 def test_wrappers_reject_cpu_tensors(rng):
     q, t = _nn_problem(rng, 16, 64)
     with pytest.raises(ValueError, match="CUDA"):
@@ -140,6 +174,10 @@ def test_wrappers_reject_cpu_tensors(rng):
     with pytest.raises(ValueError, match="CUDA"):
         tk.block_accumulate(to_torch(W), to_torch(WS),
                             *(to_torch(a) for a in s), 3.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        lk.logodds_accumulate(to_torch(W), *(to_torch(a) for a in
+                                             _delta_stream(rng, 1.0, C=8,
+                                                           A=4)), -2.0, 3.5)
 
 
 # ------------------------------------------------------- kernels, on card
@@ -201,3 +239,40 @@ def test_block_accumulate_kernel_matches_plain(rng, cuda_device, max_weight):
     touched = np.zeros(W.shape[0], bool)
     touched[to_np(s[0])[to_np(s[2]) > 0]] = True
     np.testing.assert_array_equal(out[0][0][~touched], W[~touched])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l_min,l_max,sign", LOGODDS_CASES)
+def test_logodds_accumulate_kernel_matches_plain(rng, cuda_device, l_min,
+                                                 l_max, sign):
+    L = rng.uniform(-2.0, 3.5, (64, 512)).astype(np.float32)
+    s = tuple(to_torch(a, cuda_device) for a in _delta_stream(rng, sign))
+    out = []
+    for fn in (lk.logodds_accumulate, lk.logodds_accumulate,
+               lk.logodds_accumulate_plain):
+        a = to_torch(L, cuda_device)
+        before = lk.logodds_accumulate.launches
+        fn(a, *s, l_min, l_max)
+        if fn is lk.logodds_accumulate:
+            assert lk.logodds_accumulate.launches == before + 1
+        out.append(to_np(a))
+    # deterministic run to run (no atomics): bitwise equal
+    np.testing.assert_array_equal(out[0], out[1])
+    np.testing.assert_allclose(out[0], out[2], rtol=TOL, atol=TOL)
+    touched = np.zeros(L.shape[0], bool)
+    touched[to_np(s[0])[to_np(s[2]) > 0]] = True
+    np.testing.assert_array_equal(out[0][~touched], L[~touched])
+    if l_max < lk.UNCLAMPED:
+        assert out[0].min() >= l_min and out[0].max() <= l_max
+    else:
+        assert out[0].min() < -2.0          # the clip was the identity
+
+
+@pytest.mark.cuda
+def test_logodds_accumulate_kernel_rejects_bad_input(rng, cuda_device):
+    L = to_torch(np.zeros((8, 512), np.float32), cuda_device)
+    s = [to_torch(a, cuda_device) for a in _delta_stream(rng, 1.0, C=8, A=4)]
+    with pytest.raises(ValueError, match="int32"):
+        lk.logodds_accumulate(L, s[0].long(), *s[1:], -2.0, 3.5)
+    with pytest.raises(ValueError, match="lengths differ"):
+        lk.logodds_accumulate(L, *s[:4], s[4][:-1], -2.0, 3.5)

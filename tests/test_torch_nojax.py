@@ -1,6 +1,8 @@
-"""The port never imports JAX: in a fresh interpreter whose import system
-refuses ``jax``, every module of ``noetic_slam_tpu_torch`` imports and two
-small pipeline steps run on the CPU."""
+"""The port never imports JAX nor anything of the JAX package: in a fresh
+interpreter whose import system refuses ``jax`` and ``noetic_slam_tpu``
+(but not ``noetic_slam_tpu_torch``), every module of the port and every
+module that ``chip_smoke.py`` imports import, and two small steps of the
+pipeline run on the CPU with each map backend."""
 
 import os
 import subprocess
@@ -10,12 +12,16 @@ import textwrap
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
-    import importlib, pkgutil, sys
+    import ast, importlib, pkgutil, sys
+
+    def refused(name):
+        return (name in ("jax", "noetic_slam_tpu")
+                or name.startswith(("jax.", "jaxlib", "noetic_slam_tpu.")))
 
     class RefuseJax:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                raise ImportError("jax is refused here: " + name)
+            if refused(name):
+                raise ImportError("refused here: " + name)
 
     sys.meta_path.insert(0, RefuseJax())
 
@@ -23,10 +29,20 @@ SCRIPT = textwrap.dedent("""
     mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in mods:
         importlib.import_module(name)
+    # chip_smoke.py imports inside its phases: import every module it names
+    tree = ast.parse(open("chip_smoke.py").read())
+    smoke = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names}
+    smoke |= {n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module}
+    for name in sorted(smoke):
+        assert not refused(name), name
+        importlib.import_module(name)
 
     import numpy as np
     import torch
-    from noetic_slam_tpu_torch.config import CapacityConfig, DlioConfig, TsdfConfig
+    from noetic_slam_tpu_torch.config import (
+        CapacityConfig, DlioConfig, OccupancyConfig, TsdfConfig)
     from noetic_slam_tpu_torch.runtime.pipeline import OdometryPipeline
     from noetic_slam_tpu_torch.utils import synthetic
 
@@ -34,19 +50,26 @@ SCRIPT = textwrap.dedent("""
     cfg = DlioConfig(capacity=CapacityConfig(
         max_points=1024, max_ds_points=512, max_deskew_frames=256,
         max_imu_window=64, max_keyframes=8, max_submap_kf=4),
-        tsdf=TsdfConfig(max_blocks=64, scan_block_cap=64))
+        tsdf=TsdfConfig(max_blocks=64, scan_block_cap=64),
+        occupancy=OccupancyConfig(max_blocks=64, scan_block_cap=64))
     sim = synthetic.make_sim(duration=0.25, n_points=1024, calib_time=3.1,
                              seed=2)
-    pipe = OdometryPipeline(cfg, device="cpu", with_tsdf=True)
-    for i in range(len(sim.imu_stamps)):
-        pipe.push_imu(sim.imu_stamps[i], sim.imu_ang[i], sim.imu_acc[i])
-    for s in range(2):
-        pipe.process_scan(*sim.scan(s))
-    traj = pipe.flush()
-    assert traj.shape == (2, 8) and np.isfinite(traj).all(), traj
-    bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+    scans = [sim.scan(s) for s in range(2)]
+    for backend in ("tsdf", "occupancy"):
+        pipe = OdometryPipeline(cfg.replace(map_backend=backend),
+                                device="cpu", with_tsdf=True)
+        for i in range(len(sim.imu_stamps)):
+            pipe.push_imu(sim.imu_stamps[i], sim.imu_ang[i], sim.imu_acc[i])
+        for scan in scans:
+            pipe.process_scan(*scan)
+        traj = pipe.flush()
+        assert traj.shape == (2, 8) and np.isfinite(traj).all(), traj
+        assert int(pipe.tsdf_state.num_blocks) > 0
+        assert type(pipe.tsdf_state).__name__ == (
+            "OccupancyState" if backend == "occupancy" else "TsdfState")
+    bad = sorted(m for m in sys.modules if refused(m))
     assert not bad, bad
-    print("OK", len(mods), "modules")
+    print("OK", len(mods), "modules,", len(smoke), "imported by chip_smoke")
 """)
 
 

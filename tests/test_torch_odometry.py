@@ -9,16 +9,16 @@ import numpy as np
 import pytest
 import torch
 
-from noetic_slam_tpu.config.params import CapacityConfig, DlioConfig, TsdfConfig
 from noetic_slam_tpu.models import odometry as jo
 from noetic_slam_tpu.models import tsdf as jt
 from noetic_slam_tpu.runtime.pipeline import OdometryPipeline as JaxPipeline
 from noetic_slam_tpu.utils import synthetic
 from noetic_slam_tpu_torch import convert
+from noetic_slam_tpu_torch.config import CapacityConfig, DlioConfig, TsdfConfig
 from noetic_slam_tpu_torch.models import odometry as to
 from noetic_slam_tpu_torch.ops.gicp import HostSyncs
 from noetic_slam_tpu_torch.ops.pointcloud import Scan as TScan
-from tests.torch_parity import close, to_np, to_torch
+from tests.torch_parity import close, jax_cfg, to_np, to_torch
 
 torch.set_num_threads(1)
 
@@ -52,7 +52,7 @@ def replay():
     cfg = small_cfg()
     sim = synthetic.make_sim(duration=0.8, n_points=2048, calib_time=3.1,
                              seed=1)
-    pipe = JaxPipeline(cfg, with_tsdf=True)
+    pipe = JaxPipeline(jax_cfg(cfg), with_tsdf=True)
     imu_i, steps = 0, []
     for s in range(len(sim.scan_stamps)):
         h, xyz, pt = sim.scan(s)
@@ -70,7 +70,7 @@ def replay():
 
 
 def _both_steps(cfg, packed, odom_np, tsdf_np):
-    jstep = jax.jit(jo.make_slam_step(cfg))
+    jstep = jax.jit(jo.make_slam_step(jax_cfg(cfg)))
     jin = jo.StepInput(*[None if a is None else jnp.asarray(a)
                          for a in packed])
     (js, jm), jout = jstep((jax.tree_util.tree_map(jnp.asarray, odom_np),
@@ -145,7 +145,7 @@ def test_registration_step_matches_jax(replay, k):
 def _keyframe_state(rng, n_kf=20, K=32):
     """A JAX state with ``n_kf`` keyframes on a loop (numpy fields)."""
     cfg = small_cfg()
-    st = jax.device_get(jo.init_state(cfg))
+    st = jax.device_get(jo.init_state(jax_cfg(cfg)))
     ang = np.linspace(0, 2 * np.pi, n_kf, endpoint=False)
     pos = np.zeros((K, 3), np.float32)
     pos[:n_kf] = np.stack([8 * np.cos(ang), 5 * np.sin(ang),
@@ -179,7 +179,8 @@ def test_keyframe_and_submap_functions_match_jax(n_kf):
     js = jax.tree_util.tree_map(jnp.asarray, st)
     ts = convert.odom_state_from_numpy(st, "cpu")
     alpha = 1.0
-    jmask = jo.select_submap_keyframes(cfg, js, alpha=jnp.float32(alpha))
+    jcfg = jax_cfg(cfg)
+    jmask = jo.select_submap_keyframes(jcfg, js, alpha=jnp.float32(alpha))
     tmask = to.select_submap_keyframes(cfg, ts, alpha=torch.tensor(alpha))
     np.testing.assert_array_equal(to_np(tmask), np.asarray(jmask))
     active = np.arange(32) < n_kf
@@ -193,7 +194,7 @@ def test_keyframe_and_submap_functions_match_jax(n_kf):
                                           jnp.float32(2.0))))
     # gather: the same points in the submap (Morton ties -> compare sets)
     got = to.gather_submap(cfg, ts, tmask)
-    want = jo.gather_submap(cfg, js, jmask)
+    want = jo.gather_submap(jcfg, js, jmask)
     for i in (3, 4):
         assert int(got[i]) == int(want[i])
     n = int(want[3])
@@ -231,13 +232,14 @@ def test_observer_and_adaptive_match_jax(rng):
     ts = convert.odom_state_from_numpy(st, "cpu")
     xyz = rng.uniform(-20, 20, (512, 3)).astype(np.float32)
     valid = rng.random(512) > 0.1
-    want = jo.compute_adaptive(cfg, js, jo.Scan(jnp.asarray(xyz), None,
+    jcfg = jax_cfg(cfg)
+    want = jo.compute_adaptive(jcfg, js, jo.Scan(jnp.asarray(xyz), None,
                                                 jnp.asarray(valid), None))
     got = to.compute_adaptive(cfg, ts, TScan(to_torch(xyz), None,
                                              to_torch(valid), None))
     for a, b in zip(got, want):
         close(a, b)
-    jg = jo.geo_update(cfg, js, jnp.float32(0.1))
+    jg = jo.geo_update(jcfg, js, jnp.float32(0.1))
     tg = to.geo_update(cfg, ts, torch.tensor(0.1))
     for f in ("q", "p", "v", "ba", "bg", "prev_vel"):
         close(getattr(tg, f), getattr(jg, f))
@@ -245,7 +247,7 @@ def test_observer_and_adaptive_match_jax(rng):
     ang = rng.normal(size=(64, 3)).astype(np.float32)
     acc = rng.normal(size=(64, 3)).astype(np.float32) + [0, 0, 9.8]
     acc = acc.astype(np.float32)
-    want = jo.condition_imu(cfg, jnp.asarray(stamps), jnp.asarray(ang),
+    want = jo.condition_imu(jcfg, jnp.asarray(stamps), jnp.asarray(ang),
                             jnp.asarray(acc), js.ba, js.bg)
     got = to.condition_imu(cfg, to_torch(stamps), to_torch(ang),
                            to_torch(acc), ts.ba, ts.bg)
@@ -261,15 +263,20 @@ def test_convert_round_trip(rng):
     for f, v in back.items():
         np.testing.assert_array_equal(v, np.asarray(getattr(st, f)),
                                       err_msg=f)
-    tsdf_np = jax.device_get(jt.init_tsdf(cfg.tsdf))
+    tsdf_np = jax.device_get(jt.init_tsdf(jax_cfg(cfg.tsdf)))
     t = convert.tsdf_state_from_numpy(tsdf_np, "cpu")
     for f, v in convert.tsdf_state_to_numpy(t).items():
         np.testing.assert_array_equal(v, np.asarray(getattr(tsdf_np, f)))
 
 
 def test_occupancy_backend_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        to.make_slam_step(small_cfg().replace(map_backend="occupancy"))
+    """Only the backends the port has build: "occupancy" does (its parity
+    is in tests/test_torch_occupancy.py); an unknown one raises."""
+    cfg = small_cfg().replace(map_backend="occupancy")
+    assert callable(to.make_slam_step(cfg))
+    assert callable(to.make_map_fuse(cfg))
+    with pytest.raises(ValueError, match="map_backend"):
+        to.make_slam_step(small_cfg().replace(map_backend="octree"))
 
 
 @pytest.mark.parametrize("quantized", [True, False])
@@ -279,7 +286,7 @@ def test_step_input_wire_formats_match_jax(quantized):
     cfg = cfg.replace(preproc=cfg.preproc.__class__(quantized_wire=quantized))
     sim = synthetic.make_sim(duration=0.3, n_points=1500, calib_time=3.1,
                              seed=9)
-    pipe = JaxPipeline(cfg)
+    pipe = JaxPipeline(jax_cfg(cfg))
     for i in range(len(sim.imu_stamps)):
         pipe.push_imu(sim.imu_stamps[i], sim.imu_ang[i], sim.imu_acc[i])
     h, xyz, pt = sim.scan(0)

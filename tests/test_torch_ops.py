@@ -7,18 +7,18 @@ import numpy as np
 import pytest
 import torch
 
-from noetic_slam_tpu.config.params import GicpConfig
 from noetic_slam_tpu.ops import deskew as jdk
 from noetic_slam_tpu.ops import gicp as jg
 from noetic_slam_tpu.ops import imu as jimu
 from noetic_slam_tpu.ops import pointcloud as jpc
 from noetic_slam_tpu.utils import geometry as jgeo
+from noetic_slam_tpu_torch.config import GicpConfig
 from noetic_slam_tpu_torch.ops import deskew as tdk
 from noetic_slam_tpu_torch.ops import gicp as tg
 from noetic_slam_tpu_torch.ops import imu as timu
 from noetic_slam_tpu_torch.ops import pointcloud as tpc
 from noetic_slam_tpu_torch.utils import geometry as tgeo
-from tests.torch_parity import close, to_np, to_torch
+from tests.torch_parity import close, jax_cfg, to_np, to_torch
 
 torch.set_num_threads(1)
 
@@ -319,7 +319,7 @@ def test_gicp_align_matches_jax(rng):
     src, sv, sc, tgt, tc = _gicp_problem(rng)
     cfg = GicpConfig()
     want = jg.gicp_align(jnp.asarray(src), jnp.asarray(sv), jnp.asarray(sc),
-                         jnp.asarray(tgt), jnp.asarray(tc), cfg)
+                         jnp.asarray(tgt), jnp.asarray(tc), jax_cfg(cfg))
     syncs = tg.HostSyncs()
     got = tg.gicp_align(to_torch(src), to_torch(sv), to_torch(sc),
                         to_torch(tgt), to_torch(tc), cfg, syncs=syncs)

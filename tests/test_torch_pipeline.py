@@ -115,3 +115,25 @@ def test_replay_batched_matches_per_scan():
     np.testing.assert_array_equal(a.flush(), b.flush())
     with pytest.raises(ValueError):
         replay_dataset(ds, b, batch=2, on_scan=lambda i, out: None)
+
+
+def test_entry_points_default_to_the_card():
+    """With no ``device`` the pipeline and the state constructors take the
+    card, and raise where there is none (no silent CPU)."""
+    from noetic_slam_tpu_torch.models.occupancy import init_occupancy
+    from noetic_slam_tpu_torch.models.odometry import init_state
+    from noetic_slam_tpu_torch.models.tsdf import init_tsdf
+
+    cfg = _cfg().replace(map_backend="occupancy")
+    makers = [lambda: OdometryPipeline(cfg).device,
+              lambda: OdometryPipeline(cfg, with_tsdf=True).tsdf_state
+              .logodds.device,
+              lambda: init_state(cfg).p.device,
+              lambda: init_tsdf(cfg.tsdf).weight.device,
+              lambda: init_occupancy(cfg.occupancy).logodds.device]
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()

@@ -9,13 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from noetic_slam_tpu.config.params import CapacityConfig, DlioConfig, TsdfConfig
 from noetic_slam_tpu.io.replay import replay_dataset as jax_replay
 from noetic_slam_tpu.runtime.pipeline import OdometryPipeline as JaxPipeline
 from noetic_slam_tpu.utils.synthetic import ate_rmse
+from noetic_slam_tpu_torch.config import CapacityConfig, DlioConfig, TsdfConfig
 from noetic_slam_tpu_torch.io.mulran import MulranDataset
 from noetic_slam_tpu_torch.io.replay import replay_dataset
 from noetic_slam_tpu_torch.runtime.pipeline import OdometryPipeline
+from tests.torch_parity import jax_cfg
 
 torch.set_num_threads(1)
 
@@ -41,7 +42,7 @@ def _cfg():
 
 def test_mulran_fixture_matches_jax():
     ds = MulranDataset.load(FIXTURE)
-    jpipe = JaxPipeline(_cfg(), with_tsdf=True)
+    jpipe = JaxPipeline(jax_cfg(_cfg()), with_tsdf=True)
     jstats = jax_replay(ds, jpipe)
     pipe = OdometryPipeline(_cfg(), device="cpu", with_tsdf=True)
     stats = replay_dataset(ds, pipe)

@@ -6,10 +6,11 @@ track the ground truth."""
 import numpy as np
 import torch
 
-from noetic_slam_tpu.config.params import CapacityConfig, DlioConfig, TsdfConfig
 from noetic_slam_tpu.runtime.pipeline import OdometryPipeline as JaxPipeline
 from noetic_slam_tpu.utils import synthetic
+from noetic_slam_tpu_torch.config import CapacityConfig, DlioConfig, TsdfConfig
 from noetic_slam_tpu_torch.runtime.pipeline import OdometryPipeline
+from tests.torch_parity import jax_cfg
 
 torch.set_num_threads(1)
 
@@ -49,7 +50,8 @@ def test_synthetic_replay_matches_jax():
                              seed=1)
     # generate once: sim.scan() draws from a shared generator
     scans = [sim.scan(s) for s in range(len(sim.scan_stamps))]
-    jax_traj = _replay(JaxPipeline(_cfg(), with_tsdf=True), sim, scans)
+    jpipe = JaxPipeline(jax_cfg(_cfg()), with_tsdf=True)
+    jax_traj = _replay(jpipe, sim, scans)
     pipe = OdometryPipeline(_cfg(), device="cpu", with_tsdf=True)
     traj = _replay(pipe, sim, scans)
 

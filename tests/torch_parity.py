@@ -2,9 +2,13 @@
 PyTorch port (``tests/test_torch_*.py``): the same numpy inputs go through
 both, and the outputs are compared as numpy arrays."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+
+from noetic_slam_tpu.config import params as jax_params
 
 # small-size parity runs share the machine with other test workers
 torch.set_num_threads(1)
@@ -35,3 +39,13 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernel test)")
     return torch.device("cuda")
+
+
+def jax_cfg(cfg):
+    """The JAX package's config equal to the port's ``cfg``, field by field:
+    a ``DlioConfig`` through the JAX ``load_config`` overrides, any other
+    (flat) config dataclass as its JAX class of the same name."""
+    fields = dataclasses.asdict(cfg)
+    if type(cfg).__name__ == "DlioConfig":
+        return jax_params.load_config(overrides=fields)
+    return getattr(jax_params, type(cfg).__name__)(**fields)
