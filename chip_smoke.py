@@ -16,11 +16,23 @@ Phases, each printing its own line:
    the NO_CLAMP signed case;
 5. kernel C (occupancy log-odds accumulation) against its plain version:
    one scan's 819,200 beam samples into a 65,536-row payload, clamped at
-   the ``OccupancyConfig`` defaults and unclamped (-/+1e30, sign -1);
+   the ``OccupancyConfig`` defaults and unclamped (-/+1e30, sign -1).
+   Kernel against plain within 1e-5 absolute; also 1e-5 relative for B
+   (weights up to 100) and for C's unclamped sums (up to ~1e3).
+   Phases 4 and 5 also check that two kernel runs agree bitwise, that the
+   stream fused with sign +1 and then -1 into a zero payload gives exactly
+   0, and that no voxel outside the samples' hits changes; they print the
+   largest entry and the longest chain of serial 32-sample tiles, and time
+   the kernel and one ``index_add_`` of the same stream in turns (kernel,
+   library, library, kernel), hot and cold (a 64 MB write before each
+   call, as the main path finds the rows cold). Every timing queues a
+   device sleep before its window, so that the window holds the card's
+   time and not the host's launch rate;
 6. the main path: ``OdometryPipeline(cfg, with_tsdf=True)`` (the card by
    default) over a synthetic 32,768-point sequence at the production
    capacities, with the launch counters reset just before it; the
-   trajectory's ATE against ground truth must stay under 0.05 m;
+   trajectory's ATE against ground truth must stay under 0.05 m, and
+   kernel B must run once per scan;
 7. the occupancy path: the first ``OCC_SCANS`` of those scans through
    ``OdometryPipeline(cfg.replace(map_backend="occupancy"), with_tsdf=True)``
    at the ``OccupancyConfig`` defaults, counters reset just before it;
@@ -54,9 +66,12 @@ N_QUERY = 8192
 N_TARGET = 262144
 NN_CAP = 0.5
 OCC_SCANS = 40   # synthetic scans on the occupancy path
-TOL = 1e-5      # kernel vs plain: rtol and atol
+TOL = 1e-5      # kernel vs plain: atol, and rtol where a case allows it
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory, data sheet
 F32_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+FLUSH_BYTES = 64 * 2**20     # > the H100's 50 MB L2: evicts a call's operands
+SLEEP_CYCLES = 200_000       # device sleep per queued call (~0.1 ms), so
+                             # that the host has queued it before it runs
 
 
 def _fail(msg: str) -> None:
@@ -69,19 +84,59 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _time_ms(fn, iters: int) -> float:
-    """Mean ms per call from CUDA events, after one warm-up call."""
+    """Mean ms per call from CUDA events, after one warm-up call. The device
+    sleeps while the host queues the calls, so that the window holds the
+    device's time and not the host's launch rate."""
     import torch
 
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES * iters)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _time_cold_ms(fn, n: int) -> float:
+    """Median ms of ``n`` single calls that each find the L2 cold, as the
+    main path does (a scan's other launches run between two fusions):
+    before each call a FLUSH_BYTES write and a device sleep while the host
+    queues it, and events around the call alone."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    fn()
+    evs = []
+    for i in range(n):
+        flush.fill_(float(i))
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        evs.append((e0, e1))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in evs]))
+
+
+def _turns(kernel, library, iters: int = 20, n_cold: int = 15) -> dict:
+    """A kernel and its library yardstick timed in turns in one call
+    (kernel, library, library, kernel), hot (``_time_ms``) and then cold
+    (``_time_cold_ms``); each number the mean of its two turns."""
+    hot = [_time_ms(fn, iters) for fn in (kernel, library, library, kernel)]
+    cold = [_time_cold_ms(fn, n_cold)
+            for fn in (kernel, library, library, kernel)]
+    return {"ms": (hot[0] + hot[3]) / 2,
+            "library_ms": (hot[1] + hot[2]) / 2,
+            "ms_cold": (cold[0] + cold[3]) / 2,
+            "library_ms_cold": (cold[1] + cold[2]) / 2,
+            "turns": hot, "cold_turns": cold}
 
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -92,12 +147,13 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def _kernel_row(name, source, replaces, max_err, ms, plain_ms, library_ms,
-                nbytes, ops):
+                nbytes, ops, ms_cold=None, library_ms_cold=None):
     bound_ms, bound_by = _bound(nbytes, ops)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "ms_cold": ms_cold,
+            "library_ms_cold": library_ms_cold}
 
 
 def phase_device():
@@ -236,84 +292,6 @@ def phase_nn(dev):
     return row
 
 
-def phase_tsdf(dev):
-    import torch
-
-    from noetic_slam_tpu_torch.config import TsdfConfig
-    from noetic_slam_tpu_torch.models import tsdf as tsdf_mod
-    from noetic_slam_tpu_torch.ops.cuda.tsdf_kernel import (
-        NO_CLAMP,
-        block_accumulate,
-        block_accumulate_plain,
-    )
-
-    rng = np.random.default_rng(1)
-    tcfg = TsdfConfig()
-    pts = torch.from_numpy(_planes_cloud(rng, 32768) * 0.5).to(dev)
-    valid = torch.ones(32768, dtype=torch.bool, device=dev)
-    origin = torch.zeros(3, device=dev)
-    pos, sdf, w = tsdf_mod._ray_samples(tcfg, pts, valid, origin)
-    _check(pos.shape[0] == 32768 * 23, f"tsdf: {pos.shape[0]} samples")
-
-    max_err, times = 0.0, {}
-    for label, max_weight, sign in (("clamped", tcfg.max_weight, 1.0),
-                                    ("no_clamp", NO_CLAMP, -1.0)):
-        st = tsdf_mod.init_tsdf(tcfg, dev)
-        st, r, stream = tsdf_mod.block_stream(tcfg, st, pos, sdf, w * sign)
-        # a payload with history: weights up to the clamp, signed sums
-        W = torch.from_numpy(rng.uniform(0, 100, st.weight.shape)
-                             .astype(np.float32)).to(dev)
-        WS = W * torch.from_numpy(rng.uniform(-0.3, 0.3, st.weight.shape)
-                                  .astype(np.float32)).to(dev)
-        args = (r.rows, r.starts, r.cnts, *stream, max_weight)
-        wk, wsk = W.clone(), WS.clone()
-        block_accumulate(wk, wsk, *args)
-        wp, wsp = W.clone(), WS.clone()
-        block_accumulate_plain(wp, wsp, *args)
-        torch.cuda.synchronize()
-        n_blocks = int((r.cnts > 0).sum())
-        _check(n_blocks > 1000, f"tsdf {label}: only {n_blocks} blocks")
-        for a, b in ((wk, wp), (wsk, wsp)):
-            torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
-            max_err = max(max_err, float((a - b).abs().max()))
-        touched = r.rows[r.cnts > 0].long()
-        untouched = torch.ones(W.shape[0], dtype=torch.bool, device=dev)
-        untouched[touched] = False
-        _check(bool(torch.equal(wk[untouched], W[untouched])),
-               f"tsdf {label}: an untouched row changed")
-        if label == "clamped":
-            _check(float(wk.max()) <= tcfg.max_weight,
-                   "tsdf clamped: weight above max_weight")
-        times[label] = (
-            _time_ms(lambda: block_accumulate(wk, wsk, *args), 20),
-            _time_ms(lambda: block_accumulate_plain(wp, wsp, *args), 5))
-    ms, plain_ms = times["clamped"]
-    ivox, ws, wd = stream
-    flat, spos = _stream_addresses(r, ivox)
-    pay = torch.zeros((W.numel(), 2), device=dev)
-    vals = torch.stack([ws[spos], wd[spos]], dim=1)
-    library_ms = _time_ms(lambda: pay.index_add_(0, flat, vals), 20)
-    n_samples = int(spos.shape[0])
-    n_vox = int(torch.unique(flat).shape[0])
-    # bound: the entries and the stream read once (12 B per sample), each
-    # voxel the samples change read and written once in both channels
-    row = _kernel_row(
-        "block_accumulate", "noetic_slam_tpu_torch/csrc/block_accum.cu",
-        "noetic_slam_tpu/ops/pallas/tsdf_kernel.py:51", max_err, ms,
-        plain_ms, library_ms,
-        nbytes=12 * r.rows.shape[0] + 12 * n_samples + 16 * n_vox,
-        ops=2 * n_samples + 5 * n_vox)
-    print(f"[4 tsdf] {pos.shape[0]} samples ({n_samples} in real entries, "
-          f"{n_vox} voxels), {n_blocks} blocks into "
-          f"({tcfg.max_blocks}, 512), largest block {int(r.cnts.max())} "
-          f"samples: max |d| {max_err:.3e}; kernel {ms:.3f} / "
-          f"{times['no_clamp'][0]:.3f} ms, plain {plain_ms:.3f} / "
-          f"{times['no_clamp'][1]:.3f} ms (clamped / no_clamp), index_add_ "
-          f"{library_ms:.3f} ms; bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})", flush=True)
-    return row
-
-
 def _stream_addresses(runs, ivox):
     """(flat payload index, stream position) of every sample of a real
     entry: the operands of the one ``index_add_`` that computes a block
@@ -325,18 +303,116 @@ def _stream_addresses(runs, ivox):
     return runs.rows.long()[ent] * 512 + ivox[pos].long(), pos
 
 
-def phase_logodds(dev):
+def _check_accum(tag, kernel, plain, pay, args, limits, hit, rtol):
+    """Kernel twice and plain once, each on copies of the payload tensors
+    ``pay``: the two kernel runs bitwise equal, the plain version within
+    atol TOL and ``rtol``, and every voxel no sample hits (``hit`` False;
+    untouched rows included) unchanged bitwise. Returns (kernel payload,
+    max |error|)."""
+    import torch
+
+    runs = []
+    for _ in range(2):
+        out = [p.clone() for p in pay]
+        kernel(*out, *args, *limits)
+        runs.append(out)
+    want = [p.clone() for p in pay]
+    plain(*want, *args, *limits)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b, p, x in zip(runs[0], runs[1], want, pay):
+        _check(bool(torch.equal(a, b)), f"{tag}: two kernel runs differ")
+        torch.testing.assert_close(a, p, rtol=rtol, atol=TOL)
+        err = max(err, float((a - p).abs().max()))
+        _check(bool(torch.equal(a.view(-1)[~hit], x.view(-1)[~hit])),
+               f"{tag}: a voxel no sample hits changed")
+    return runs[0], err
+
+
+def _check_cancel(tag, kernel, like, args, limits):
+    """Unclamped: the stream fused with sign +1 and then -1 into a zero
+    payload (one tensor per channel, shaped as ``like``) gives exactly 0."""
+    import torch
+
+    rows, starts, cnts, ivox, *chans = args
+    out = [torch.zeros_like(like) for _ in chans]
+    kernel(*out, rows, starts, cnts, ivox, *chans, *limits)
+    _check(any(bool((x != 0).any()) for x in out),
+           f"{tag} cancel: the +1 fusion changed nothing")
+    kernel(*out, rows, starts, cnts, ivox, *(-c for c in chans), *limits)
+    _check(all(bool((x == 0).all()) for x in out),
+           f"{tag} cancel: +1 then -1 left "
+           f"{max(float(x.abs().max()) for x in out):.3e}")
+
+
+def _entry_shape(runs):
+    """(real entries, largest entry, serial 32-sample tiles of the longest
+    warp chain, as the built kernel cuts the entries (``entry_cut``), and
+    of the largest entry alone if it had every warp of a CTA:
+    ceil(largest / (32 x warps per entry)))."""
+    from noetic_slam_tpu_torch.ops.cuda.tsdf_kernel import entry_cut
+
+    warps, short, part = entry_cut()
+    cnts = runs.cnts[runs.cnts > 0].long()
+    parts = _ceil_div(cnts, part).clamp(max=warps)
+    parts[cnts <= short] = 1
+    sub = _ceil_div(_ceil_div(cnts, parts), 32) * 32      # whole tiles
+    chain = int(_ceil_div(sub, 32).max()) if cnts.numel() else 0
+    largest = int(runs.cnts.max())
+    return int(cnts.numel()), largest, chain, -(-largest // (32 * warps))
+
+
+def _ceil_div(a, b):
+    """ceil(a / b) of non-negative integer tensors, elementwise."""
+    return (a + b - 1) // b
+
+
+def _hit_mask(runs, ivox, numel):
+    import torch
+
+    flat, _ = _stream_addresses(runs, ivox)
+    hit = torch.zeros(numel, dtype=torch.bool, device=ivox.device)
+    hit[flat] = True
+    return hit
+
+
+def tsdf_problem(dev, rng, sign):
+    """Kernel B's operands at one scan's shapes: 32,768 points of the
+    60 m box scene at half size, their ray samples (23 per point) with
+    weights times ``sign``, block-sorted into a default ``TsdfConfig`` map;
+    a payload with history (weights in [0, 100], wsum up to 0.3 of them).
+    Returns (BlockRuns, (rows, starts, cnts, ivox, w, wd), (W, WS))."""
+    import torch
+
+    from noetic_slam_tpu_torch.config import TsdfConfig
+    from noetic_slam_tpu_torch.models import tsdf as tsdf_mod
+
+    tcfg = TsdfConfig()
+    pts = torch.from_numpy(_planes_cloud(rng, 32768) * 0.5).to(dev)
+    valid = torch.ones(32768, dtype=torch.bool, device=dev)
+    pos, sdf, w = tsdf_mod._ray_samples(tcfg, pts, valid,
+                                        torch.zeros(3, device=dev))
+    _check(pos.shape[0] == 32768 * 23, f"tsdf: {pos.shape[0]} samples")
+    st = tsdf_mod.init_tsdf(tcfg, dev)
+    st, r, stream = tsdf_mod.block_stream(tcfg, st, pos, sdf, w * sign)
+    W = torch.from_numpy(rng.uniform(0, 100, st.weight.shape)
+                         .astype(np.float32)).to(dev)
+    WS = W * torch.from_numpy(rng.uniform(-0.3, 0.3, st.weight.shape)
+                              .astype(np.float32)).to(dev)
+    return r, (r.rows, r.starts, r.cnts, *stream), (W, WS)
+
+
+def logodds_problem(dev, rng, sign):
+    """Kernel C's operands at one scan's shapes: the same scene's beam
+    samples (1 hit + 24 free-space per point) with deltas times ``sign``,
+    block-sorted into a default ``OccupancyConfig`` map; a payload with
+    history, uniform in [l_min, l_max]. Returns (BlockRuns, (rows, starts,
+    cnts, ivox, delta), (L,))."""
     import torch
 
     from noetic_slam_tpu_torch.config import OccupancyConfig
     from noetic_slam_tpu_torch.models import occupancy as occ_mod
-    from noetic_slam_tpu_torch.ops.cuda.logodds_kernel import (
-        UNCLAMPED,
-        logodds_accumulate,
-        logodds_accumulate_plain,
-    )
 
-    rng = np.random.default_rng(2)
     ocfg = OccupancyConfig()
     pts = torch.from_numpy(_planes_cloud(rng, 32768) * 0.5).to(dev)
     valid = torch.ones(32768, dtype=torch.bool, device=dev)
@@ -344,69 +420,145 @@ def phase_logodds(dev):
                                        torch.zeros(3, device=dev))
     _check(pos.shape[0] == 32768 * (1 + ocfg.miss_samples),
            f"logodds: {pos.shape[0]} samples")
+    st = occ_mod.init_occupancy(ocfg, dev)
+    st, r, stream = occ_mod.delta_stream(ocfg, st, pos, delta * sign)
+    L = torch.from_numpy(rng.uniform(ocfg.l_min, ocfg.l_max,
+                                     st.logodds.shape)
+                         .astype(np.float32)).to(dev)
+    return r, (r.rows, r.starts, r.cnts, *stream), (L,)
 
-    max_err, times = 0.0, {}
-    for label, lo, hi, sign in (("clamped", ocfg.l_min, ocfg.l_max, 1.0),
-                                ("signed", -UNCLAMPED, UNCLAMPED, -1.0)):
-        st = occ_mod.init_occupancy(ocfg, dev)
-        st, r, stream = occ_mod.delta_stream(ocfg, st, pos, delta * sign)
-        # a payload with history, uniform in [l_min, l_max]
-        L = torch.from_numpy(rng.uniform(ocfg.l_min, ocfg.l_max,
-                                         st.logodds.shape)
-                             .astype(np.float32)).to(dev)
-        args = (r.rows, r.starts, r.cnts, *stream, lo, hi)
-        lk, lk2, lp = L.clone(), L.clone(), L.clone()
-        logodds_accumulate(lk, *args)
-        logodds_accumulate(lk2, *args)
-        logodds_accumulate_plain(lp, *args)
-        torch.cuda.synchronize()
+
+def _accum_phase(kernel, plain, problem, cases, clamp_range, dev, seed):
+    """Kernel B or C against its plain version on one scan's stream, for
+    each ``(label, limits, sign, rtol)`` of ``cases`` (the first clamped,
+    whose first channel must end inside ``clamp_range``; the second
+    unclamped and signed, which must leave it); the exact +-1 cancellation
+    on the unclamped limits; the kernel and one ``index_add_`` of the same
+    stream timed in turns, hot and cold, on the first case. Returns (runs
+    and stream of the first case, its timings, plain ms, kernel ms and max
+    |error| of each case)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    errs, got = [], []
+    for label, limits, sign, rtol in cases:
+        r, args, pay = problem(dev, rng, sign)
         n_blocks = int((r.cnts > 0).sum())
-        _check(n_blocks > 1000, f"logodds {label}: only {n_blocks} blocks")
-        _check(bool(torch.equal(lk, lk2)),
-               f"logodds {label}: two kernel runs differ")
-        err = float((lk - lp).abs().max())
-        _check(err <= TOL, f"logodds {label}: max |dL| {err:.3e} > {TOL}")
-        max_err = max(max_err, err)
-        touched = r.rows[r.cnts > 0].long()
-        untouched = torch.ones(L.shape[0], dtype=torch.bool, device=dev)
-        untouched[touched] = False
-        _check(bool(torch.equal(lk[untouched], L[untouched])),
-               f"logodds {label}: an untouched row changed")
-        if label == "clamped":
-            _check(float(lk.min()) >= lo and float(lk.max()) <= hi,
-                   "logodds clamped: outside [l_min, l_max]")
-        else:
-            _check(float(lk.max()) > ocfg.l_max,
-                   "logodds signed: the +-1e30 clip was not the identity")
-        times[label] = (_time_ms(lambda: logodds_accumulate(lk, *args), 20),
-                        _time_ms(lambda: logodds_accumulate_plain(lp, *args),
-                                 5))
-    ms, plain_ms = times["clamped"]
-    ivox, d_sorted = stream
-    flat, spos = _stream_addresses(r, ivox)
-    pay = torch.zeros(L.numel(), device=dev)
-    vals = d_sorted[spos]
-    library_ms = _time_ms(lambda: pay.index_add_(0, flat, vals), 20)
-    n_samples = int(spos.shape[0])
-    n_vox = int(torch.unique(flat).shape[0])
-    largest = int(r.cnts.max())
+        _check(n_blocks > 1000, f"{problem.__name__} {label}: only "
+               f"{n_blocks} blocks")
+        hit = _hit_mask(r, args[3], pay[0].numel())
+        out, err = _check_accum(f"{problem.__name__} {label}", kernel,
+                                plain, pay, args, limits, hit, rtol)
+        errs.append(err)
+        inside = (clamp_range[0] <= float(out[0].min())
+                  and float(out[0].max()) <= clamp_range[1])
+        _check(inside == (not got), f"{problem.__name__} {label}: first "
+               f"channel in [{float(out[0].min())}, {float(out[0].max())}]")
+        got.append((r, args, limits, out))
+    (r, args, limits, out), (_, _, limits2, _) = got
+    _check_cancel(problem.__name__, kernel, out[0], args, limits2)
+    plain_ms, kernel_ms = [], []
+    for _, a, lim, o in got:
+        work = [p.clone() for p in o]
+        plain_ms.append(_time_ms(lambda: plain(*work, *a, *lim), 5))
+        kernel_ms.append(_time_ms(lambda: kernel(*work, *a, *lim), 20))
+    flat, spos = _stream_addresses(r, args[3])
+    vals = torch.stack([c[spos] for c in args[4:]], dim=1)
+    lib_pay = torch.zeros((out[0].numel(), vals.shape[1]), device=dev)
+    work = [p.clone() for p in out]
+    t = _turns(lambda: kernel(*work, *args, *limits),
+               lambda: lib_pay.index_add_(0, flat, vals))
+    return r, args, t, plain_ms, kernel_ms, errs
+
+
+def _accum_line(r, args, t, plain_ms, kernel_ms, errs, row, labels):
+    n_blocks, largest, chain, chain_largest = _entry_shape(r)
+    n_samples, n_vox = _voxel_counts(r, args[3])
+    hot = ", ".join(f"{x:.4f}" for x in t["turns"])
+    cold = ", ".join(f"{x:.4f}" for x in t["cold_turns"])
+    return (f"{args[3].shape[0]} samples ({n_samples} in real entries, "
+            f"{n_vox} voxels), {n_blocks} blocks, largest {largest} samples "
+            f"(mean {n_samples / n_blocks:.0f}), longest chain {chain} "
+            f"tiles (the largest entry's alone: {chain_largest}): max |d| "
+            f"{errs[0]:.3e} / {errs[1]:.3e} ({labels[0]} / {labels[1]}); "
+            f"kernel "
+            f"{t['ms']:.4f} ms hot / {t['ms_cold']:.4f} cold, index_add_ "
+            f"{t['library_ms']:.4f} hot / {t['library_ms_cold']:.4f} cold "
+            f"({labels[0]}; turns kernel, index_add_, index_add_, kernel: "
+            f"hot {hot}, cold {cold}); kernel {kernel_ms[0]:.4f} / "
+            f"{kernel_ms[1]:.4f} ms, plain {plain_ms[0]:.3f} / "
+            f"{plain_ms[1]:.3f} ms ({labels[0]} / {labels[1]}); bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}); two runs "
+            f"bitwise equal, +1/-1 exact, unhit voxels unchanged")
+
+
+def _voxel_counts(r, ivox):
+    """(samples in real entries, distinct voxels they hit)."""
+    import torch
+
+    flat, _ = _stream_addresses(r, ivox)
+    return int(flat.shape[0]), int(torch.unique(flat).shape[0])
+
+
+def phase_tsdf(dev):
+    from noetic_slam_tpu_torch.config import TsdfConfig
+    from noetic_slam_tpu_torch.ops.cuda.tsdf_kernel import (
+        NO_CLAMP,
+        block_accumulate,
+        block_accumulate_plain,
+    )
+
+    # rtol and atol TOL in both cases (weights up to 100)
+    cases = (("clamped", (TsdfConfig().max_weight,), 1.0, TOL),
+             ("no_clamp", (NO_CLAMP,), -1.0, TOL))
+    r, args, t, plain_ms, kernel_ms, errs = _accum_phase(
+        block_accumulate, block_accumulate_plain, tsdf_problem, cases,
+        (0.0, cases[0][1][0]), dev, seed=1)
+    n_samples, n_vox = _voxel_counts(r, args[3])
+    # bound: the entries and the stream read once (12 B per sample), each
+    # voxel the samples change read and written once in both channels
+    row = _kernel_row(
+        "block_accumulate", "noetic_slam_tpu_torch/csrc/block_accum.cu",
+        "noetic_slam_tpu/ops/pallas/tsdf_kernel.py:51", max(errs), t["ms"],
+        plain_ms[0], t["library_ms"],
+        nbytes=12 * r.rows.shape[0] + 12 * n_samples + 16 * n_vox,
+        ops=2 * n_samples + 5 * n_vox, ms_cold=t["ms_cold"],
+        library_ms_cold=t["library_ms_cold"])
+    print("[4 tsdf] " + _accum_line(r, args, t, plain_ms, kernel_ms, errs,
+                                    row, ("clamped", "no_clamp")), flush=True)
+    return row
+
+
+def phase_logodds(dev):
+    from noetic_slam_tpu_torch.config import OccupancyConfig
+    from noetic_slam_tpu_torch.ops.cuda.logodds_kernel import (
+        UNCLAMPED,
+        logodds_accumulate,
+        logodds_accumulate_plain,
+    )
+
+    ocfg = OccupancyConfig()
+    # clamped: atol TOL alone (|L| <= 3.5); signed: also rtol TOL, since
+    # its unclamped sums reach ~1e3, where one f32 ulp is ~6e-5 and the
+    # plain version's index_add_ adds in another order
+    cases = (("clamped", (ocfg.l_min, ocfg.l_max), 1.0, 0.0),
+             ("signed", (-UNCLAMPED, UNCLAMPED), -1.0, TOL))
+    r, args, t, plain_ms, kernel_ms, errs = _accum_phase(
+        logodds_accumulate, logodds_accumulate_plain, logodds_problem, cases,
+        cases[0][1], dev, seed=2)
+    n_samples, n_vox = _voxel_counts(r, args[3])
     # bound: the entries and the stream read once (8 B per sample), each
     # voxel the samples change read and written once
     row = _kernel_row(
         "logodds_accumulate", "noetic_slam_tpu_torch/csrc/block_accum.cu",
-        "noetic_slam_tpu/ops/pallas/tsdf_kernel.py:112", max_err, ms,
-        plain_ms, library_ms,
+        "noetic_slam_tpu/ops/pallas/tsdf_kernel.py:112", max(errs), t["ms"],
+        plain_ms[0], t["library_ms"],
         nbytes=12 * r.rows.shape[0] + 8 * n_samples + 8 * n_vox,
-        ops=n_samples + 3 * n_vox)
-    print(f"[5 logodds] {pos.shape[0]} samples ({n_samples} in real "
-          f"entries, {n_vox} voxels), {n_blocks} blocks into "
-          f"({ocfg.max_blocks}, 512), "
-          f"largest block {largest} samples (mean "
-          f"{n_samples / n_blocks:.0f}): max |dL| {max_err:.3e}; kernel "
-          f"{ms:.3f} / {times['signed'][0]:.3f} ms, plain {plain_ms:.3f} / "
-          f"{times['signed'][1]:.3f} ms (clamped / signed), index_add_ "
-          f"{library_ms:.3f} ms; bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})", flush=True)
+        ops=n_samples + 3 * n_vox, ms_cold=t["ms_cold"],
+        library_ms_cold=t["library_ms_cold"])
+    print("[5 logodds] " + _accum_line(r, args, t, plain_ms, kernel_ms,
+                                       errs, row, ("clamped", "signed")),
+          flush=True)
     return row
 
 
@@ -583,8 +735,9 @@ def phase_main_path(cfg, sim, scans, n_scans: int, n_profile: int = 0):
 
     pipe, traj, launches, stats = _drive("main path", cfg, sim, scans,
                                          n_scans, n_profile)
-    _check(launches["block_accumulate"] > 0,
-           "main path: kernel B never launched")
+    _check(launches["block_accumulate"] == n_scans,
+           f"main path: kernel B launched {launches['block_accumulate']} "
+           f"times for {n_scans} scans")
     _check(bool(torch.isfinite(pipe.tsdf_state.weight).all()),
            "main path: non-finite TSDF weight")
     print(f"[6 main path] {n_scans} scans x 32768 points, tsdf: "
@@ -724,7 +877,8 @@ def main(argv=None) -> int:
         {key: k[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms",
                                  "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")} for k in kernels]}))
+                                 "library_ms", "ms_cold", "library_ms_cold")}
+        for k in kernels]}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

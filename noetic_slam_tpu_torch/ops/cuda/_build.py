@@ -1,18 +1,20 @@
 """Build and load the hand-written CUDA kernels of ``noetic_slam_tpu_torch/csrc``.
 
 Route: ``nvcc`` by hand into one shared library with a plain C interface,
-loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds). One
+``nvcc`` per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/torch_kernels/libnst_kernels_<hash>.so \\
-         noetic_slam_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <source>.o noetic_slam_tpu_torch/csrc/<source>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/torch_kernels/libnst_kernels_<hash>.so *.o
 
 The library is built at first use into ``build/torch_kernels/`` at the
 repository root, named by a content hash of the sources, so an edited
 source rebuilds and an unchanged one loads the existing file. A failed
 build raises with nvcc's output; nothing falls back to a plain version.
-Every C entry point takes its pointers and the CUDA stream as
-``c_void_p`` and returns ``cudaGetLastError()`` after its launch.
+Every C entry point that launches takes its pointers and the CUDA stream
+as ``c_void_p`` and returns ``cudaGetLastError()`` after its launch.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +51,11 @@ _SIGNATURES = {
     # logodds, C, rows, starts, cnts, A, ivox, delta, S, l_min, l_max, stream
     "nst_logodds_accum_launch": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _F, _F,
                                  _P],
+    # the entry cut of kernels B and C: most warps per entry, samples one
+    # warp takes alone, samples per part; no arguments
+    "nst_block_accum_warps": [],
+    "nst_block_accum_short": [],
+    "nst_block_accum_part": [],
 }
 
 _lock = threading.Lock()
@@ -83,17 +90,52 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libnst_kernels_{h.hexdigest()[:16]}.so")
 
 
-def _compile(out: str) -> None:
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+def _run(cmd: list[str], proc: subprocess.Popen) -> None:
+    out, err = proc.communicate(timeout=900)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
+                           f"{' '.join(cmd)}\n{out}\n{err}")
+
+
+def compile_library(srcs: list[str], out: str) -> None:
+    """Builds the shared library ``out`` from the CUDA sources ``srcs``:
+    one nvcc per source, all started together, then one link. Raises with
+    nvcc's output on a failed build."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    jobs = []
+    for src in srcs:
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    try:
+        for _, cmd, proc in jobs:
+            _run(cmd, proc)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+               *(obj for obj, _, _ in jobs)]
+        _run(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True))
+    finally:
+        for obj, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)          # atomic: concurrent builders never see
                                   # a half-written library
+
+
+def open_library(path: str, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
+    """The library at ``path`` with the C signatures of ``names`` bound."""
+    lib = ctypes.CDLL(path)
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def load() -> ctypes.CDLL:
@@ -105,15 +147,10 @@ def load() -> ctypes.CDLL:
         out = library_path()
         if not os.path.exists(out):
             t0 = time.perf_counter()
-            _compile(out)
+            compile_library(sources(), out)
             build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(out)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        _lib = open_library(out)
+        return _lib
 
 
 def check(err: int, what: str) -> None:

@@ -5,17 +5,32 @@ Replaces ``noetic_slam_tpu/ops/pallas/tsdf_kernel.py`` (``_accum_kernel``,
 launched by ``block_accumulate``). Each candidate entry b names a payload
 row ``rows[b]`` and a contiguous range ``[starts[b], starts[b] + cnts[b])``
 of the block-sorted sample stream (``ivox``, ``w``, ``wd`` = w*sdf). The
-range is summed into the row, then the row is clamped:
-``new_w = min(W + ΣW, max_weight)`` and ``Σwd`` is scaled by
-``new_w / (W + ΣW)``. At ``max_weight >= NO_CLAMP`` it is a pure sum.
-Entries with ``cnts <= 0`` are skipped; rows must be unique among the
-others. Untouched rows are never read or written. The payload is updated
-in place.
+range is summed per voxel, and each voxel that some sample of the range
+hits is updated: ``new_w = min(W + ΣW, max_weight)`` and ``WS + Σwd`` is
+scaled by ``new_w / (W + ΣW)``. At ``max_weight >= NO_CLAMP`` it is a pure
+sum. Entries with ``cnts <= 0`` are skipped; rows must be unique among the
+others. The payload is updated in place.
 
-What bounds it on the card, and what the design does about it: see the
-note at the top of ``csrc/block_accum.cu``, whose kernel template B shares
-with kernel C (``ops/cuda/logodds_kernel.py``). The TPU version's 8-row group
-scratch and its padding-first ordering contract are not carried over.
+Hit-voxel contract: only voxels that some sample of a real entry hits are
+read and written. Voxels of a touched row that no sample hits keep their
+value bitwise, as do untouched rows. The TPU kernel instead applies the
+clamp to whole 8-row groups and relies on it being the identity where
+nothing was added; on every state a map can reach (weights in
+``[0, max_weight]``, ``wsum`` 0 where the weight is 0; any state at
+``NO_CLAMP``) the two agree.
+
+What bounds it on the card is latency and balance, not bytes: one scan's
+4,096 entries hold ~30 samples on average and the few blocks around the
+sensor ~4,000, and merging one 32-sample tile in a warp is a chain of
+shuffle and shared-memory round trips. The kernel gives an entry of at
+most 384 samples to one warp and cuts a longer one into equal parts that
+up to 16 warps of one CTA walk side by side; it merges same-voxel samples
+inside each tile (``__match_any_sync``), keeps per-warp partials and hit
+masks in shared memory, merges the parts of a long entry in part order,
+and touches only the hit voxels of the payload. The note at the top of ``csrc/block_accum.cu`` (whose
+template B shares with kernel C, ``ops/cuda/logodds_kernel.py``) has the
+details. The sums are deterministic and negation-symmetric: a stream fused
+with sign +1 and then -1 from a zero payload returns exactly 0.
 """
 
 from __future__ import annotations
@@ -73,27 +88,35 @@ def entry_addresses(starts: Tensor, cnts: Tensor) -> tuple[Tensor, Tensor]:
     return ent, pos
 
 
-def entry_sums(starts: Tensor, cnts: Tensor, ivox: Tensor,
-               channels: tuple) -> tuple:
-    """The plain versions' per-entry sums: ``(A, 512)`` per channel, each
-    entry's samples added into its own zeroed row with ``index_add_``
-    (entries with ``cnts <= 0`` stay zero)."""
+def entry_sums(rows: Tensor, starts: Tensor, cnts: Tensor, ivox: Tensor,
+               channels: tuple) -> tuple[Tensor, tuple]:
+    """The plain versions' sums: ``(idx, sums)``, where ``idx`` holds the
+    flat payload index (``row * 512 + voxel``) of every voxel that some
+    sample of an entry with ``cnts > 0`` hits, and ``sums`` each channel's
+    per-entry sum there. Each entry's samples are added with ``index_add_``
+    into its own zeroed row first (the kernel's association: an entry is
+    summed before it meets the payload)."""
     A = starts.shape[0]
-    dev = ivox.device
     ent, pos = entry_addresses(starts, cnts)
     flat = ent * BLOCK_VOLUME + ivox[pos].long()
-    out = []
+    hit = torch.unique(flat)
+    sums = []
     for x in channels:
-        acc = torch.zeros(A * BLOCK_VOLUME, dtype=torch.float32, device=dev)
+        acc = torch.zeros(A * BLOCK_VOLUME, dtype=torch.float32,
+                          device=ivox.device)
         acc.index_add_(0, flat, x[pos])
-        out.append(acc.view(A, BLOCK_VOLUME))
-    return tuple(out)
+        sums.append(acc[hit])
+    idx = rows.long()[hit // BLOCK_VOLUME] * BLOCK_VOLUME + hit % BLOCK_VOLUME
+    return idx, tuple(sums)
 
 
 def block_accumulate(weight: Tensor, wsum: Tensor, rows: Tensor,
                      starts: Tensor, cnts: Tensor, ivox: Tensor, w: Tensor,
                      wd: Tensor, max_weight: float) -> None:
-    """Kernel B on the card; updates ``weight``/``wsum`` (C, 512) in place.
+    """Kernel B on the card; updates the hit voxels of ``weight``/``wsum``
+    (C, 512) in place (hit-voxel contract: module docstring). One launch
+    per call, of one CTA per ``entry_cut()[0]`` entries, sized from the
+    entry count alone; nothing is read back to the host.
 
     CUDA tensors only; raises on anything else (no fallback)."""
     check_entries("block_accumulate", weight, rows, starts, cnts, ivox,
@@ -121,22 +144,31 @@ def block_accumulate(weight: Tensor, wsum: Tensor, rows: Tensor,
 block_accumulate.launches = 0
 
 
+def entry_cut() -> tuple[int, int, int]:
+    """The cut of an entry in the built kernels B and C: (the most warps
+    one entry gets, the samples one warp takes alone, the samples of a
+    part). An entry of ``cnt <= short`` samples is one warp's
+    ``ceil(cnt / 32)`` serial 32-sample tiles; a longer one is cut into
+    ``min(warps, ceil(cnt / part))`` equal parts, rounded up to whole
+    tiles, walked side by side."""
+    lib = _build.load()
+    return (lib.nst_block_accum_warps(), lib.nst_block_accum_short(),
+            lib.nst_block_accum_part())
+
+
 def block_accumulate_plain(weight: Tensor, wsum: Tensor, rows: Tensor,
                            starts: Tensor, cnts: Tensor, ivox: Tensor,
                            w: Tensor, wd: Tensor, max_weight: float) -> None:
     """Plain torch version of kernel B (``index_add_`` into per-entry
-    accumulators, then one update of the touched rows), same contract,
-    in place. Sums each entry first and adds it to the row after, the
-    kernel's association."""
-    real = cnts > 0
-    acc_w, acc_wd = entry_sums(starts, cnts, ivox, (w, wd))
-    r = rows[real].long()
-    new_w = weight[r] + acc_w[real]
-    new_wd = wsum[r] + acc_wd[real]
+    sums, then one update of the hit voxels), same contract, in place."""
+    idx, (sw, swd) = entry_sums(rows, starts, cnts, ivox, (w, wd))
+    W, WS = weight.view(-1), wsum.view(-1)
+    new_w = W[idx] + sw
+    new_wd = WS[idx] + swd
     if max_weight >= NO_CLAMP:
-        weight[r] = new_w
-        wsum[r] = new_wd
+        W[idx] = new_w
+        WS[idx] = new_wd
     else:
         clamped = torch.clamp(new_w, max=max_weight)
-        wsum[r] = new_wd * (clamped / torch.clamp(new_w, min=1e-12))
-        weight[r] = clamped
+        WS[idx] = new_wd * (clamped / torch.clamp(new_w, min=1e-12))
+        W[idx] = clamped

@@ -18,7 +18,7 @@ from noetic_slam_tpu_torch.config import CapacityConfig, DlioConfig, OccupancyCo
 from noetic_slam_tpu_torch.models import occupancy as to
 from noetic_slam_tpu_torch.models import odometry as todo
 from noetic_slam_tpu_torch.ops.cuda import logodds_kernel as lk
-from tests.torch_parity import close, jax_cfg, to_np, to_torch
+from tests.torch_parity import close, jax_cfg, pallas_entries, to_np, to_torch
 
 torch.set_num_threads(1)
 
@@ -113,21 +113,11 @@ def test_beam_samples_match_jax(rng):
 
 
 def _jax_stream(rng, C=64, A=24):
-    """A stream in the Pallas kernel's ordering contract: padding entries
-    (cnt 0) first carrying the first real row, real rows ascending and
-    unique, the stream padded to a multiple of 512."""
-    n_pad = 5
-    rows = np.sort(rng.choice(C, A - n_pad, replace=False))
-    cnt = rng.integers(1, 300, A - n_pad)
-    starts = np.concatenate([[0], np.cumsum(cnt)[:-1]])
-    S = -(-int(cnt.sum()) // 512) * 512
-    ivox = rng.integers(0, 512, S)
+    """``pallas_entries`` with log-odds deltas."""
+    rows, starts, cnts, ivox = pallas_entries(rng, C, A)
+    S = ivox.shape[0]
     delta = rng.choice([0.85, -0.4], S) * (rng.random(S) + 0.5)
-    i32 = lambda a: np.asarray(a, np.int32)          # noqa: E731
-    return (i32(np.r_[[rows[0]] * n_pad, rows]), i32(np.r_[[0] * n_pad,
-                                                           starts]),
-            i32(np.r_[[0] * n_pad, cnt]), i32(ivox),
-            delta.astype(np.float32))
+    return rows, starts, cnts, ivox, delta.astype(np.float32)
 
 
 @pytest.mark.parametrize("clamp", ["clamped", "signed"])

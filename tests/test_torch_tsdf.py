@@ -10,9 +10,17 @@ import pytest
 import torch
 
 from noetic_slam_tpu.models import tsdf as jt
+from noetic_slam_tpu.ops.pallas import tsdf_kernel as jk
 from noetic_slam_tpu_torch.config import TsdfConfig
 from noetic_slam_tpu_torch.models import tsdf as tt
-from tests.torch_parity import close, jax_cfg, to_np, to_torch
+from noetic_slam_tpu_torch.ops.cuda import tsdf_kernel as tk
+from tests.torch_parity import (
+    close,
+    jax_cfg,
+    pallas_entries,
+    to_np,
+    to_torch,
+)
 
 torch.set_num_threads(1)
 
@@ -119,6 +127,38 @@ def test_signed_defusion_matches_jax_and_cancels():
     st_t = tt._integrate_samples(cfg, st_t, pos, sdf, -w)
     assert float(st_t.weight.abs().max()) < 1e-5
     assert float(st_t.wsum.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("clamp", ["clamped", "no_clamp"])
+def test_block_accumulate_plain_matches_jax_kernel(rng, clamp):
+    """The plain version against JAX's Pallas kernel (interpret mode) on one
+    stream and a payload a map can reach (weights in [0, max_weight], wsum
+    0 where the weight is 0): clamped at max_weight = 3.0, and NO_CLAMP
+    with the weights negated (signed de-fusion)."""
+    max_weight, sign = (3.0, 1.0) if clamp == "clamped" else (tk.NO_CLAMP,
+                                                               -1.0)
+    W = rng.uniform(0, 3.0, (64, 512)).astype(np.float32)
+    W[rng.random(W.shape) < 0.25] = 0.0
+    WS = (W * rng.uniform(-0.3, 0.3, W.shape)).astype(np.float32)
+    rows, starts, cnts, ivox = pallas_entries(rng)
+    w = (rng.uniform(0.05, 1.0, ivox.shape[0]) * sign).astype(np.float32)
+    wd = (w * rng.uniform(-0.3, 0.3, w.shape)).astype(np.float32)
+    want = jk.block_accumulate(
+        *(jnp.asarray(a) for a in (W, WS, rows, starts, cnts, ivox, w, wd)),
+        max_weight, interpret=True)
+    got = (to_torch(W), to_torch(WS))
+    tk.block_accumulate_plain(*got, *(to_torch(a) for a in
+                                      (rows, starts, cnts, ivox, w, wd)),
+                              max_weight)
+    touched = np.zeros(64, bool)
+    touched[rows[cnts > 0]] = True
+    for g, j, x in zip(got, want, (W, WS)):
+        close(g, j, rtol=P_TOL, atol=P_TOL)
+        np.testing.assert_array_equal(to_np(g)[~touched], x[~touched])
+    if clamp == "clamped":
+        assert to_np(got[0]).max() <= max_weight
+    else:       # negated weights, no clamp: touched voxels go below 0
+        assert to_np(got[0]).min() < 0.0
 
 
 def test_block_key_wraps_like_int32_jax():

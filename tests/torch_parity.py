@@ -41,6 +41,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def pallas_entries(rng, C=64, A=24):
+    """(rows, starts, cnts, ivox) of a block stream in the Pallas kernels'
+    ordering contract: padding entries (cnt 0) first carrying the first
+    real row, real rows ascending and unique, the stream padded to a
+    multiple of 512."""
+    n_pad = 5
+    rows = np.sort(rng.choice(C, A - n_pad, replace=False))
+    cnt = rng.integers(1, 300, A - n_pad)
+    starts = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    S = -(-int(cnt.sum()) // 512) * 512
+    ivox = rng.integers(0, 512, S)
+    i32 = lambda a: np.asarray(a, np.int32)          # noqa: E731
+    return (i32(np.r_[[rows[0]] * n_pad, rows]),
+            i32(np.r_[[0] * n_pad, starts]), i32(np.r_[[0] * n_pad, cnt]),
+            i32(ivox))
+
+
 def jax_cfg(cfg):
     """The JAX package's config equal to the port's ``cfg``, field by field:
     a ``DlioConfig`` through the JAX ``load_config`` overrides, any other
