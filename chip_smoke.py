@@ -10,7 +10,16 @@ Phases, each printing its own line:
    with nvcc for sm_90a into ``build/torch_kernels/``;
 3. kernel A (1-NN) against its plain version at the slice's shapes:
    8192 queries against 262,144 Morton-sorted targets, capped (0.5 m) and
-   uncapped;
+   uncapped: found sets equal, not-found idx 0 with sqd = cap^2, sqd
+   within rtol 1e-5, idx equal or tied, two runs bitwise equal, and sqd
+   bitwise equal to the plain model of its walk. It is timed in turns with
+   ``cdist``+``amin`` (kernel, library, library, kernel), hot and cold,
+   and its two launches apart (target boxes; list build + walk + exact
+   distances). Its bound does not depend on the kernel's own tiles: the
+   pairs of a per-query best-first walk over 256-row target tiles
+   (``nn_kernel.needed_pairs``); the count earlier revisions used
+   (64-query tiles, box to box) is printed beside it, with the lists'
+   lengths and the rows the walk's pruning rule scans;
 4. kernel B (TSDF block accumulation) against its plain version: one
    scan's 753,664-sample stream into a 65,536-row payload, clamped and in
    the NO_CLAMP signed case;
@@ -32,7 +41,9 @@ Phases, each printing its own line:
    default) over a synthetic 32,768-point sequence at the production
    capacities, with the launch counters reset just before it; the
    trajectory's ATE against ground truth must stay under 0.05 m, and
-   kernel B must run once per scan;
+   kernel B must run once per scan. 6b: kernel A against its plain version
+   and timed beside ``cdist``+``amin`` on the operands of one real
+   correspondence search kept from that run (ten scans before its end);
 7. the occupancy path: the first ``OCC_SCANS`` of those scans through
    ``OdometryPipeline(cfg.replace(map_backend="occupancy"), with_tsdf=True)``
    at the ``OccupancyConfig`` defaults, counters reset just before it;
@@ -66,6 +77,11 @@ N_QUERY = 8192
 N_TARGET = 262144
 NN_CAP = 0.5
 OCC_SCANS = 40   # synthetic scans on the occupancy path
+NO_WALK_SHIFT = 1.0e4   # m: queries moved this far have no candidate tile
+BOUND_TILE = 256   # target rows a tile of the walk kernel A's bound counts
+OLD_Q_TILE = 64    # queries a tile of the bound of earlier revisions
+KEEP_NN_BEFORE_END = 10   # the main path keeps one kernel A call's operands
+                          # from the scan this many before its last
 TOL = 1e-5      # kernel vs plain: atol, and rtol where a case allows it
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory, data sheet
 F32_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
@@ -198,28 +214,24 @@ def _planes_cloud(rng, n: int) -> np.ndarray:
     return pts
 
 
-def phase_nn(dev):
+def nn_problem(dev):
+    """Kernel A's operands at the slice's shapes: (query (N_QUERY, 3),
+    target (N_TARGET, 3), t_count () int32, live rows). The target is a
+    padded submap, live rows first in Morton order; the queries are a
+    registration source: target points plus 5 cm noise, one in eight moved
+    off the surfaces by ~1 m (beyond the cap), in Morton order."""
     import torch
 
-    from noetic_slam_tpu_torch.ops.cuda.nn_kernel import (
-        Q_TILE,
-        T_TILE,
-        nn1_fused,
-        nn1_plain,
-        visit_lists,
-    )
     from noetic_slam_tpu_torch.ops.pointcloud import SENTINEL, morton_sort_key
 
     rng = np.random.default_rng(0)
-    n_live = N_TARGET - N_TARGET // 16        # padded submap: live rows first
+    n_live = N_TARGET - N_TARGET // 16
     tgt = np.full((N_TARGET, 3), SENTINEL, np.float32)
     tgt[:n_live] = _planes_cloud(rng, n_live)
     valid = np.arange(N_TARGET) < n_live
     tgt_t = torch.from_numpy(tgt).to(dev)
     key = morton_sort_key(tgt_t, torch.from_numpy(valid).to(dev), 1.0)
     tgt_t = tgt_t[torch.sort(key, stable=True).indices].contiguous()
-    # queries: a registration source - target points plus 5 cm noise, one
-    # in eight moved off the surfaces by ~1 m (beyond the cap), Morton order
     pick = rng.choice(n_live, N_QUERY, replace=False)
     noise = rng.normal(0, 0.05, (N_QUERY, 3))
     noise[::8] = rng.normal(0, 1.0, (len(noise[::8]), 3))
@@ -229,67 +241,192 @@ def phase_nn(dev):
                                          device=dev), 1.0)
     q = q[torch.sort(qkey, stable=True).indices].contiguous()
     count = torch.full((), n_live, dtype=torch.int32, device=dev)
+    return q, tgt_t, count, n_live
 
+
+def nn_library(q, tgt, n_live):
+    """Kernel A's library yardstick: brute force over the live targets with
+    ``torch.cdist`` + ``amin`` (the port never calls cdist)."""
+    import torch
+
+    def library():
+        for q0 in range(0, q.shape[0], 1024):
+            torch.cdist(q[q0:q0 + 1024], tgt[:n_live]).amin(dim=1)
+
+    return library
+
+
+def nn_check(label, nn1, q, tgt, count, cap):
+    """Kernel A (``nn1``) twice and its plain version once on the same
+    operands: two runs bitwise equal, found sets equal, not-found idx 0
+    with sqd = cap^2, sqd within rtol TOL, idx equal or tied within it.
+    Returns (found, idx ties, max |dsqd|, plain sqd)."""
+    import torch
+
+    from noetic_slam_tpu_torch.ops.cuda.nn_kernel import nn1_plain
+
+    cap_t = None if cap is None else torch.full((), cap, device=q.device)
+    ik, dk = nn1(q, tgt, count, cap_t)
+    ik2, dk2 = nn1(q, tgt, count, cap_t)
+    ip, dp_t = nn1_plain(q, tgt, count, cap_t)
+    torch.cuda.synchronize()
+    _check(bool(torch.equal(ik, ik2)) and bool(torch.equal(dk, dk2)),
+           f"nn {label}: two kernel runs differ")
+    ik, dk, ip, dp = (x.cpu().numpy() for x in (ik, dk, ip, dp_t))
+    c2 = np.inf if cap is None else np.float32(cap) ** 2
+    fk, fp = dk < c2, dp < c2
+    _check(np.array_equal(fk, fp), f"nn {label}: found sets differ "
+           f"({int((fk != fp).sum())} queries)")
+    if cap is not None:
+        _check(bool(np.all(ik[~fk] == 0)), f"nn {label}: not-found idx != 0")
+        _check(bool(np.all(dk[~fk] == c2)), f"nn {label}: not-found sqd "
+               "!= cap^2")
+    np.testing.assert_allclose(dk[fk], dp[fp], rtol=TOL, atol=0.0)
+    tie = ik != ip
+    _check(bool(np.all(np.isclose(dk[tie], dp[tie], rtol=TOL, atol=0.0))),
+           f"nn {label}: idx differ where distances do not tie")
+    err = float(np.abs(dk[fk] - dp[fk]).max()) if fk.any() else 0.0
+    return fk, int(tie.sum()), err, dp_t
+
+
+def _old_nn_pairs(q, tgt, count, cap2, d_plain, n_live):
+    """The count earlier revisions' bound used: every query of a
+    64-query tile against every row of the 256-row target tiles whose
+    box-to-box bound beats the tile's final worst best."""
+    import torch
+
+    from noetic_slam_tpu_torch.ops.cuda.nn_kernel import visit_lists
+
+    vlist, vlb, _ = visit_lists(q, tgt, count.reshape(1), cap2,
+                                q_tile=OLD_Q_TILE, t_tile=BOUND_TILE,
+                                per_query=False)
+    worst = torch.minimum(d_plain, cap2).reshape(-1, OLD_Q_TILE).amax(dim=1)
+    tile_rows = torch.clamp(n_live - vlist.long() * BOUND_TILE, 0, BOUND_TILE)
+    return int((torch.where(vlb < worst[:, None], tile_rows, 0).sum(dim=1)
+                * OLD_Q_TILE).sum())
+
+
+def phase_nn(dev):
+    import torch
+
+    from noetic_slam_tpu_torch.ops.cuda import nn_kernel as nk
+
+    q, tgt_t, count, n_live = nn_problem(dev)
     max_err = 0.0
     res = {}
     for label, cap in (("capped", NN_CAP), ("uncapped", None)):
-        cap_t = None if cap is None else torch.full((), cap, device=dev)
-        ik, dk = nn1_fused(q, tgt_t, count, cap_t)
-        ip, dp = nn1_plain(q, tgt_t, count, cap_t)
-        torch.cuda.synchronize()
-        ik, dk, ip, dp = (x.cpu().numpy() for x in (ik, dk, ip, dp))
-        c2 = np.inf if cap is None else np.float32(cap) ** 2
-        fk, fp = dk < c2, dp < c2
-        _check(np.array_equal(fk, fp), f"nn {label}: found sets differ "
-               f"({int((fk != fp).sum())} queries)")
+        fk, ties, err, d_plain = nn_check(label, nk.nn1_fused, q, tgt_t,
+                                          count, cap)
         if cap is None:
             _check(bool(fk.all()), "nn uncapped: a query found nothing")
         else:
             _check(0.5 < fk.mean() < 0.99, f"nn capped: found share "
                    f"{fk.mean():.3f} does not exercise the cap")
-            _check(bool(np.all(ik[~fk] == 0)), "nn capped: not-found idx != 0")
-        np.testing.assert_allclose(dk[fk], dp[fp], rtol=TOL, atol=0.0)
-        tie = ik != ip
-        _check(bool(np.all(np.isclose(dk[tie], dp[tie], rtol=TOL, atol=0.0))),
-               f"nn {label}: idx differ where distances do not tie")
-        max_err = max(max_err, float(np.abs(dk[fk] - dp[fk]).max()))
-        res[label] = (int(fk.sum()), int(tie.sum()))
+            d_capped = d_plain
+        max_err = max(max_err, err)
+        res[label] = (int(fk.sum()), ties)
 
     cap_t = torch.full((), NN_CAP, device=dev)
-    ms = _time_ms(lambda: nn1_fused(q, tgt_t, count, cap_t), 20)
-    plain_ms = _time_ms(lambda: nn1_plain(q, tgt_t, count, cap_t), 3)
+    t = _turns(lambda: nk.nn1_fused(q, tgt_t, count, cap_t),
+               nn_library(q, tgt_t, n_live), iters=20, n_cold=15)
+    plain_ms = _time_ms(lambda: nk.nn1_plain(q, tgt_t, count, cap_t), 3)
+    # the call's two launches apart: the target boxes, then list build +
+    # walk + exact distances (one fused launch, not split further)
+    tbox = nk.target_boxes(tgt_t, count)
+    boxes_ms = _time_ms(lambda: nk.target_boxes(tgt_t, count), 20)
+    walk_ms = _time_ms(lambda: nk.walk(q, tgt_t, tbox, count, cap_t), 20)
+    # the same launch with the queries moved out of every tile's reach: the
+    # launch, the queries, every box-to-box test and the output, no walk
+    q_far = q + NO_WALK_SHIFT
+    no_walk_ms = _time_ms(lambda: nk.walk(q_far, tgt_t, tbox, count, cap_t),
+                          20)
 
     # bound: 8 f32 operations (3 sub, 3 mul, 2 add) per query-target pair
-    # over the target tiles a best-first walk must visit (those whose box
-    # bound beats the query tile's final worst best), counted by the plain
-    # code that builds the visit lists; bytes: each input read once, each
-    # output written once
+    # of a per-query best-first walk over BOUND_TILE-row target tiles (the
+    # tiles whose point-to-box bound is below the query's final best);
+    # bytes: each input read once, each output written once
+    pairs = nk.needed_pairs(q, tgt_t, count, cap_t, d_capped,
+                            t_tile=BOUND_TILE)
     cap2 = torch.full((1,), NN_CAP ** 2, device=dev)
-    vlist, vlb, _ = visit_lists(q, tgt_t, count.reshape(1), cap2)
-    _, d_plain = nn1_plain(q, tgt_t, count, cap_t)
-    worst = torch.minimum(d_plain, cap2).reshape(-1, Q_TILE).amax(dim=1)
-    tile_rows = torch.clamp(n_live - vlist.long() * T_TILE, 0, T_TILE)
-    pairs = int((torch.where(vlb < worst[:, None], tile_rows, 0).sum(dim=1)
-                 * Q_TILE).sum())
+    old_pairs = _old_nn_pairs(q, tgt_t, count, cap2, d_capped, n_live)
     nbytes = N_QUERY * 12 + n_live * 12 + N_QUERY * 8
 
-    def library():
-        # brute force over the live targets (the port never calls cdist)
-        for q0 in range(0, N_QUERY, 1024):
-            torch.cdist(q[q0:q0 + 1024], tgt_t[:n_live]).amin(dim=1)
+    # the lists the kernel builds and the rows its pruning rule scans, from
+    # the plain model (one warp per group walking alone; the kernel deals a
+    # list over the CTA's warps, which start knowing only the cap)
+    shape = nk.kernel_shape()
+    _, _, vcnt = nk.visit_lists(q, tgt_t, count.reshape(1), cap2,
+                                shape["group"], shape["tile"])
+    _, dk = nk.nn1_fused(q, tgt_t, count, cap_t)
+    _, dm, rows = nk.nn1_walk_plain(q, tgt_t, count, cap_t,
+                                     group=shape["group"],
+                                     t_tile=shape["tile"])
+    _check(bool(torch.equal(dm, dk)), "nn: the kernel and its walk model "
+           "differ in sqd")
+    model_pairs = int(rows.sum()) * shape["group"]
+    chain_one = int(rows.max())
+    # a warp's share of the longest walk, in tiles; a lane evaluates at most
+    # tile / 32 rows x 32 queries = tile distances for each
+    chain_tiles = -(-chain_one // (shape["tile"] * shape["warps"]))
+    chain = chain_tiles * shape["tile"]
 
-    library_ms = _time_ms(library, 3)
     row = _kernel_row("nn1_fused", "noetic_slam_tpu_torch/csrc/nn1.cu",
                       "noetic_slam_tpu/ops/pallas/nn_kernel.py:53", max_err,
-                      ms, plain_ms, library_ms, nbytes, 8.0 * pairs)
+                      t["ms"], plain_ms, t["library_ms"], nbytes, 8.0 * pairs,
+                      ms_cold=t["ms_cold"],
+                      library_ms_cold=t["library_ms_cold"])
+    old_bound, _ = _bound(nbytes, 8.0 * old_pairs)
+    hot = ", ".join(f"{x:.4f}" for x in t["turns"])
+    cold = ", ".join(f"{x:.4f}" for x in t["cold_turns"])
     print(f"[3 nn1] {N_QUERY} x {N_TARGET} (live {n_live}): capped found "
           f"{res['capped'][0]}, uncapped found {res['uncapped'][0]}; idx "
           f"ties {res['capped'][1]}/{res['uncapped'][1]}; max |dsqd| "
-          f"{max_err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"cdist+min {library_ms:.3f} ms (capped); {pairs} pairs needed "
-          f"({pairs / (N_QUERY * n_live):.4f} of brute force), bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+          f"{max_err:.3e}; two runs bitwise equal; kernel {t['ms']:.4f} ms "
+          f"hot / {t['ms_cold']:.4f} cold, cdist+amin "
+          f"{t['library_ms']:.3f} hot / {t['library_ms_cold']:.3f} cold "
+          f"(capped; turns kernel, cdist, cdist, kernel: hot {hot}, cold "
+          f"{cold}); launches apart: target boxes {boxes_ms:.4f} ms, list "
+          f"build + walk + exact distances (fused) {walk_ms:.4f} ms, of which "
+          f"{no_walk_ms:.4f} ms without any walk (the same launch with the "
+          f"queries moved {NO_WALK_SHIFT:.0f} m away: no candidate); plain "
+          f"{plain_ms:.3f} ms; shape {shape['group']} queries x "
+          f"{shape['warps']} warps a CTA, {shape['tile']}-row tiles; lists: "
+          f"longest {int(vcnt.max())}, mean {float(vcnt.float().mean()):.1f} "
+          f"tiles; walk model: {model_pairs} pairs if every query of a "
+          f"group scanned the tiles any of them needs, longest walk "
+          f"{chain_one} rows for one warp alone, about {chain_tiles} tiles "
+          f"a warp dealt over {shape['warps']} warps: at most {chain} "
+          f"distance evaluations a thread; bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}; {pairs} pairs of a per-query walk over "
+          f"{BOUND_TILE}-row tiles, "
+          f"{pairs / (N_QUERY * n_live):.5f} of brute force); the bound of "
+          f"earlier revisions (64-query tiles, box to box) {old_pairs} "
+          f"pairs, {old_bound:.4f} ms", flush=True)
     return row
+
+
+def phase_nn_main_shape(kept):
+    """Kernel A and ``cdist``+``amin`` in turns on the operands of one real
+    ``update_correspondences`` call kept from the main path's run, after
+    the same checks against the plain version."""
+    from noetic_slam_tpu_torch.ops.cuda import nn_kernel as nk
+
+    scan, (q, tgt, count, cap_t) = kept["scan"], kept["args"]
+    n_live = int(count)
+    fk, ties, err, _ = nn_check("main shape", nk.nn1_fused, q, tgt, count,
+                                float(cap_t))
+    t = _turns(lambda: nk.nn1_fused(q, tgt, count, cap_t),
+               nn_library(q, tgt, n_live), iters=20, n_cold=10)
+    print(f"[6b nn1 at the main path's shape] the first correspondence "
+          f"search of scan {scan}: {q.shape[0]} queries x {tgt.shape[0]} "
+          f"target rows (live {n_live}), cap {float(cap_t):.3f} m: found "
+          f"{int(fk.sum())}, idx ties {ties}, max |dsqd| {err:.3e}; kernel "
+          f"{t['ms']:.4f} ms hot / {t['ms_cold']:.4f} cold, cdist+amin "
+          f"{t['library_ms']:.3f} hot / {t['library_ms_cold']:.3f} cold",
+          flush=True)
+    return {"main_shape_ms": t["ms"], "main_shape_ms_cold": t["ms_cold"],
+            "main_shape_library_ms": t["library_ms"],
+            "main_shape_live_rows": n_live}
 
 
 def _stream_addresses(runs, ivox):
@@ -648,12 +785,14 @@ def _counters():
             "logodds_accumulate": logodds_kernel.logodds_accumulate}
 
 
-def _drive(tag: str, cfg, sim, scans, n_scans: int, n_profile: int = 0):
+def _drive(tag: str, cfg, sim, scans, n_scans: int, n_profile: int = 0,
+           on_scan=None):
     """``OdometryPipeline(cfg, with_tsdf=True)``, on the card by default,
     over ``scans[:n_scans]`` (the first ten untimed), with every launch
     counter set to 0 just before and read just after; then ``n_profile``
     more scans under torch.profiler. Checks the trajectory and returns
-    (pipeline, trajectory, launches, stats)."""
+    (pipeline, trajectory, launches, stats). ``on_scan(i)`` is called
+    before scan ``i`` is processed."""
     import torch
 
     from noetic_slam_tpu_torch.runtime.pipeline import OdometryPipeline
@@ -666,7 +805,9 @@ def _drive(tag: str, cfg, sim, scans, n_scans: int, n_profile: int = 0):
 
     def run(lo, hi):
         nonlocal imu_i
-        for h, xyz, pt in scans[lo:hi]:
+        for i, (h, xyz, pt) in enumerate(scans[lo:hi], start=lo):
+            if on_scan is not None:
+                on_scan(i)
             while (imu_i < len(sim.imu_stamps)
                    and sim.imu_stamps[imu_i] <= h + pt.max() + 0.02):
                 pipe.push_imu(sim.imu_stamps[imu_i], sim.imu_ang[imu_i],
@@ -733,8 +874,29 @@ def _path_line(stats, pipe) -> str:
 def phase_main_path(cfg, sim, scans, n_scans: int, n_profile: int = 0):
     import torch
 
-    pipe, traj, launches, stats = _drive("main path", cfg, sim, scans,
-                                         n_scans, n_profile)
+    from noetic_slam_tpu_torch.ops import neighbors
+
+    # keep the operands of one real correspondence search late in the run
+    # (phase 6b times kernel A on them): the first of the chosen scan
+    kept = {"scan": max(0, n_scans - KEEP_NN_BEFORE_END)}
+    now = {"scan": -1}
+    inner = neighbors.nn1
+
+    def keeping(query, target, t_count=None, max_dist=None):
+        if now["scan"] == kept["scan"] and "args" not in kept:
+            kept["args"] = tuple(x.clone() for x in (query, target, t_count,
+                                                     max_dist))
+        return inner(query, target, t_count, max_dist)
+
+    neighbors.nn1 = keeping
+    try:
+        pipe, traj, launches, stats = _drive(
+            "main path", cfg, sim, scans, n_scans, n_profile,
+            on_scan=lambda i: now.update(scan=i))
+    finally:
+        neighbors.nn1 = inner
+    _check("args" in kept, f"main path: scan {kept['scan']} made no "
+           "correspondence search")
     _check(launches["block_accumulate"] == n_scans,
            f"main path: kernel B launched {launches['block_accumulate']} "
            f"times for {n_scans} scans")
@@ -742,7 +904,7 @@ def phase_main_path(cfg, sim, scans, n_scans: int, n_profile: int = 0):
            "main path: non-finite TSDF weight")
     print(f"[6 main path] {n_scans} scans x 32768 points, tsdf: "
           f"{_path_line(stats, pipe)}; launches {launches}", flush=True)
-    return pipe, traj, launches
+    return pipe, traj, launches, kept
 
 
 def phase_occupancy_path(cfg, sim, scans, n_scans: int, n_profile: int = 0):
@@ -862,8 +1024,10 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     cfg = _main_cfg()
-    tsdf_pipe, tsdf_traj, launches = phase_main_path(
+    tsdf_pipe, tsdf_traj, launches, kept = phase_main_path(
         cfg, sim, scans, args.scans, args.profile)
+    kernels[0].update(phase_nn_main_shape(kept))
+    del kept
     occ_pipe, occ_traj, occ_launches = phase_occupancy_path(
         cfg, sim, scans, OCC_SCANS, args.profile)
     phase_map_products(cfg.tsdf, tsdf_pipe.tsdf_state, tsdf_traj,
@@ -873,11 +1037,12 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         _check(k["launches"] > 0, f"{k['name']} never launched on its path")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_cold",
+            "library_ms_cold")
     print(json.dumps({"kernels": [
-        {key: k[key] for key in ("name", "route", "source", "replaces",
-                                 "launches", "max_abs_err", "ms",
-                                 "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "ms_cold", "library_ms_cold")}
+        {**{key: k[key] for key in keys},
+         **{key: v for key, v in k.items() if key.startswith("main_shape")}}
         for k in kernels]}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

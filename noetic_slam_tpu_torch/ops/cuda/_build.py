@@ -40,10 +40,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: name -> argtypes (every function returns int cudaError_t)
 _SIGNATURES = {
-    # q, nq, t, nt, t_count*, cap2*, vlist, vlb, vcnt, ntt, q_tile, t_tile,
-    # out_idx, out_d, stream
-    "nst_nn1_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _P, _P, _P],
+    # t, nt, t_count* (or null), t_count_host, tbox, stream
+    "nst_nn1_boxes_launch": [_P, _I, _P, _I, _P, _P],
+    # q, nq, t, nt, t_count* (or null), t_count_host, max_dist* (or null),
+    # cap2_host, tbox, out_idx, out_d, stream
+    "nst_nn1_walk_launch": [_P, _I, _P, _I, _P, _I, _P, _F, _P, _P, _P, _P],
+    # kernel A's shape: target rows a tile, queries a group, warps a CTA,
+    # most target rows a call takes; no arguments
+    "nst_nn1_tile": [],
+    "nst_nn1_group": [],
+    "nst_nn1_warps": [],
+    "nst_nn1_max_rows": [],
     # weight, wsum, C, rows, starts, cnts, A, ivox, w, wd, S, max_weight,
     # no_clamp, stream
     "nst_tsdf_accum_launch": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,

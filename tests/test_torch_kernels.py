@@ -39,8 +39,10 @@ def cuda_device():
 # that voxel), then the parts' partials in part order, the plain version
 # through index_add_ (another order on the card) -> rtol/atol 1e-5 as
 # tests/test_tsdf_kernel.py. NN distances
-# are bitwise equal by construction (no FMA contraction, same order); 1e-5
-# covers the recomputation at a tied winner.
+# are bitwise equal by construction (no FMA contraction, same order), and
+# the kernel returns the smallest index among equally near rows; 1e-5 and
+# "idx equal or tied" leave room for the plain version's argmin on the
+# card, which may take another of the tied rows.
 TOL = 1e-5
 
 
@@ -350,6 +352,147 @@ def test_nn1_kernel_matches_plain(rng, cuda_device, nq, nt, count, cap):
     np.testing.assert_allclose(d_k[tie], d_p[tie], rtol=TOL)
     if count:
         assert i_k.max() < count
+
+
+def _morton(x):
+    from noetic_slam_tpu_torch.ops.pointcloud import morton_sort_key
+
+    xt = to_torch(x)
+    key = morton_sort_key(xt, torch.ones(len(x), dtype=torch.bool), 1.0)
+    return x[to_np(torch.sort(key, stable=True).indices)]
+
+
+def _nn_layout(rng, name):
+    """(query, target, t_count, cap) of one layout chosen to break kernel
+    A's design:
+
+    - spanning_group: Morton-sorted clouds, but one 32-query group drawn
+      from all over the target, so that its box touches every tile and
+      only the per-query test prunes;
+    - none_found: every query ~10 m from every target, under a cap;
+    - ragged: sizes that are multiples of no tile, ``t_count`` inside a
+      tile;
+    - outlier: uncapped, one query 500 m away (its walk visits all);
+    - sentinels: sentinel rows among the queries and behind ``t_count``;
+    - offset: both clouds 3,000 m from the origin."""
+    if name == "spanning_group":
+        t = _morton((rng.uniform(-30, 30, (40000, 3))).astype(np.float32))
+        q = _morton(t[rng.choice(40000, 2048)]
+                    + rng.normal(0, 0.05, (2048, 3)).astype(np.float32))
+        q[96:128] = t[rng.choice(40000, 32)] + np.float32(0.01)
+        return q, t, 40000, 0.5
+    if name == "none_found":
+        q, t = _nn_problem(rng, 700, 3000)
+        return q + np.float32(100.0), t, 3000, 0.5
+    if name == "ragged":
+        q, t = _nn_problem(rng, 1237, 7001)
+        return q, t, 6999, 0.6
+    if name == "outlier":
+        q, t = _nn_problem(rng, 500, 6000)
+        q[123] = (500.0, -20.0, 3.0)
+        return q, t, 6000, None
+    if name == "sentinels":
+        q, t = _nn_problem(rng, 900, 5000)
+        q[rng.choice(900, 40, replace=False)] = 1.0e6
+        t[4600:] = 1.0e6
+        return q, t, 4600, 0.4
+    if name == "offset":
+        q, t = _nn_problem(rng, 800, 5000)
+        return q + np.float32(3000.0), t + np.float32(3000.0), 5000, 0.6
+    raise ValueError(name)
+
+
+NN_LAYOUTS = ["spanning_group", "none_found", "ragged", "outlier",
+              "sentinels", "offset"]
+
+
+def _nn_kernel_vs_plain(q, t, count, cap, dev, count_as_tensor=True):
+    """Kernel A twice and ``nn1_plain`` once: one counted call each, the
+    two runs bitwise equal, found sets equal, not-found idx 0 with
+    sqd = cap^2, sqd within TOL, idx equal or tied. Returns the kernel's
+    (idx, sqd) as numpy."""
+    qd, td = to_torch(q, dev), to_torch(t, dev)
+    cnt = (torch.tensor(count, dtype=torch.int32, device=dev)
+           if count_as_tensor else count)
+    runs = []
+    for _ in range(2):
+        before = nk.nn1_fused.launches
+        runs.append(nk.nn1_fused(qd, td, cnt, cap))
+        assert nk.nn1_fused.launches == before + 1
+    i_p, d_p = nk.nn1_plain(qd, td, cnt, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    i_k, d_k, i_p, d_p = map(to_np, (*runs[0], i_p, d_p))
+    assert i_k.dtype == np.int32 and d_k.dtype == np.float32
+    c2 = np.inf if cap is None else np.float32(float(cap)) ** 2
+    np.testing.assert_array_equal(d_k < c2, d_p < c2)
+    np.testing.assert_allclose(d_k, d_p, rtol=TOL)
+    tie = i_k != i_p
+    np.testing.assert_allclose(d_k[tie], d_p[tie], rtol=TOL)
+    if cap is not None:
+        miss = ~(d_k < c2)
+        assert (i_k[miss] == 0).all() and (d_k[miss] == c2).all()
+    if count:
+        assert i_k.max() < count
+    return i_k, d_k
+
+
+@pytest.mark.cuda
+def test_nn1_kernel_shape_matches_the_plain_constants(cuda_device):
+    shape = nk.kernel_shape()
+    assert shape["tile"] == nk.T_TILE and shape["group"] == nk.Q_GROUP
+    assert shape["warps"] >= 1 and shape["max_rows"] >= 262144
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", NN_LAYOUTS)
+def test_nn1_kernel_matches_plain_on_layouts(rng, cuda_device, layout):
+    q, t, count, cap = _nn_layout(rng, layout)
+    i_k, d_k = _nn_kernel_vs_plain(q, t, count, cap, cuda_device)
+    c2 = np.inf if cap is None else np.float32(cap) ** 2
+    if layout == "none_found":
+        assert not (d_k < c2).any()
+    elif layout == "spanning_group":
+        assert (d_k[96:128] < c2).all()
+    elif layout == "sentinels":
+        assert not (d_k[np.abs(q).max(axis=1) > 1e5] < c2).any()
+        assert (d_k < c2).sum() > 400
+    elif layout == "outlier":
+        assert d_k[123] > 400.0 ** 2
+    else:
+        assert (d_k < c2).mean() > 0.3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("as_tensor", [True, False])
+@pytest.mark.parametrize("count", [0, 1, 255, 256, 257])
+def test_nn1_kernel_t_count_edges(rng, cuda_device, count, as_tensor):
+    """``t_count`` at a tile's edges, as a device tensor and as a host
+    integer; the cap as a device tensor."""
+    q, t = _nn_problem(rng, 300, 600, scale=1.0)
+    cap = torch.tensor(0.8, device=cuda_device)
+    i_k, d_k = _nn_kernel_vs_plain(q, t, count, cap, cuda_device, as_tensor)
+    if count == 0:
+        assert (i_k == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, 0.5])
+def test_nn1_kernel_duplicate_rows_take_the_lowest_index(rng, cuda_device,
+                                                         cap):
+    """Copies of a row in other tiles, before and after the original: the
+    smallest index wins whichever warp scans which tile first."""
+    t = rng.uniform(-5, 5, (4096, 3)).astype(np.float32)
+    t[3000:3064] = t[10:74]
+    t[140] = t[4000]
+    t[2000:2300] = t[700]                   # one point, 301 times
+    q = np.concatenate([t[10:74], t[4000:4001], t[700:701],
+                        t[200:230] + np.float32(0.01)])
+    i_k, d_k = _nn_kernel_vs_plain(q, t, 4096, cap, cuda_device)
+    assert i_k[:64].tolist() == list(range(10, 74))
+    assert i_k[64] == 140 and i_k[65] == 700
+    assert (d_k[:66] == 0).all()
 
 
 @pytest.mark.cuda
