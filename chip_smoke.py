@@ -50,7 +50,33 @@ Phases, each printing its own line:
    kernel C must run once per fused scan;
 8. map products: surface points, the surface-nets mesh and the ESDF
    region around the final pose of the TSDF map; occupied voxels and the
-   ESDF region of the occupancy map.
+   ESDF region of the occupancy map;
+9. the whole system: ``SlamSystem(pipelined=True)`` at bench.py:286-351's
+   full width (8192 points, 4096 kept, 16,384 blocks and the archive's
+   second volume) over its 240-scan spiral, driven as bench.py drives it
+   (``warmup()``, batches of 8 through ``process_scans``,
+   ``maybe_close_loop`` every third batch, the first 32 scans untimed),
+   the counters set to 0 just before and read just after. It prints
+   scans/s beside the fused step alone on the same scans, closures, raced
+   attempts, ``sync_lost_keyframes`` (must be 0, and every keyframe
+   synced and archived), ATE, peak memory, host syncs per scan and per
+   closing call, and the ``StageTimer`` table; no call may reach a plain
+   version;
+10. loop closures on the drifting loop of tests/test_slam_system.py
+   (starved registration, IMU noise), twice: as the test has it, where the
+   closure's outcome and the surface's median error before and after it
+   are printed (the drift drawn there differs from machine to machine);
+   and started from rest with a manufactured drift on top
+   (``synthetic.linear_drift`` through ``SlamSystem.set_keyframe_poses``),
+   where it must close and cut the surface's median error by at least
+   25%. It prints the moved keyframes and ``t_optimize`` / ``t_apply`` /
+   ``t_map_sync``;
+11. kernels A and B against their plain versions on operands kept from
+   phases 9-10: the first correspondence search inside ``verify_loop``
+   (two keyframe clouds with sentinel rows, the cap at twice the
+   correspondence distance) and an archive fusion's chunk stream (with
+   its exact +1/-1 cancellation), timed hot and cold beside
+   ``cdist``+``amin`` and ``index_add_`` (the ``system_*`` keys).
 
 Each kernel phase prints the kernel's time, its plain version's, the time
 of one PyTorch library call computing the same function (used nowhere in
@@ -256,11 +282,15 @@ def nn_library(q, tgt, n_live):
     return library
 
 
-def nn_check(label, nn1, q, tgt, count, cap):
+def nn_check(label, nn1, q, tgt, count, cap, live=None):
     """Kernel A (``nn1``) twice and its plain version once on the same
     operands: two runs bitwise equal, found sets equal, not-found idx 0
     with sqd = cap^2, sqd within rtol TOL, idx equal or tied within it.
-    Returns (found, idx ties, max |dsqd|, plain sqd)."""
+    ``live`` (bool per query): compare only those; the others are
+    sentinel queries, which the kernel must find nothing for (the plain
+    version pairs one with a sentinel target row, where the target holds
+    some inside its count). Returns (found, idx ties, max |dsqd|, plain
+    sqd)."""
     import torch
 
     from noetic_slam_tpu_torch.ops.cuda.nn_kernel import nn1_plain
@@ -273,16 +303,20 @@ def nn_check(label, nn1, q, tgt, count, cap):
     _check(bool(torch.equal(ik, ik2)) and bool(torch.equal(dk, dk2)),
            f"nn {label}: two kernel runs differ")
     ik, dk, ip, dp = (x.cpu().numpy() for x in (ik, dk, ip, dp_t))
+    live = np.ones(len(dk), bool) if live is None else live
     c2 = np.inf if cap is None else np.float32(cap) ** 2
-    fk, fp = dk < c2, dp < c2
+    _check(bool(np.all(ik[~live] == 0) and np.all(dk[~live] == c2)),
+           f"nn {label}: a sentinel query found a row")
+    fk, fp = (dk < c2) & live, (dp < c2) & live
     _check(np.array_equal(fk, fp), f"nn {label}: found sets differ "
            f"({int((fk != fp).sum())} queries)")
     if cap is not None:
-        _check(bool(np.all(ik[~fk] == 0)), f"nn {label}: not-found idx != 0")
-        _check(bool(np.all(dk[~fk] == c2)), f"nn {label}: not-found sqd "
-               "!= cap^2")
+        _check(bool(np.all(ik[live & ~fk] == 0)),
+               f"nn {label}: not-found idx != 0")
+        _check(bool(np.all(dk[live & ~fk] == c2)), f"nn {label}: not-found "
+               "sqd != cap^2")
     np.testing.assert_allclose(dk[fk], dp[fp], rtol=TOL, atol=0.0)
-    tie = ik != ip
+    tie = live & (ik != ip)
     _check(bool(np.all(np.isclose(dk[tie], dp[tie], rtol=TOL, atol=0.0))),
            f"nn {label}: idx differ where distances do not tie")
     err = float(np.abs(dk[fk] - dp[fk]).max()) if fk.any() else 0.0
@@ -996,6 +1030,478 @@ def phase_map_products(tsdf_cfg, tsdf_state, tsdf_traj, occ_cfg, occ_state,
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The whole system: SlamSystem at bench.py's full width (phase 9), a loop
+# closure on the drifting loop (phase 10), and kernels A and B on operands
+# kept from their calls there (phase 11)
+# ---------------------------------------------------------------------------
+
+SYSTEM_SCANS = 240        # bench.py's whole-system sequence
+SYSTEM_K = 8              # scans a batch (bench.py's K)
+SYSTEM_UNTIMED = 32       # the first four batches, untimed as in bench.py
+
+
+def _system_cfg():
+    """bench.py:286-351's whole-system configuration, at its full width."""
+    from noetic_slam_tpu_torch.config import (
+        CapacityConfig,
+        DlioConfig,
+        KeyframeConfig,
+        TsdfConfig,
+    )
+
+    return DlioConfig(
+        capacity=CapacityConfig(
+            max_points=8192, max_ds_points=4096, max_deskew_frames=1024,
+            max_imu_window=128, max_keyframes=128, max_submap_kf=16,
+            max_trajectory=4096),
+        adaptive=False, keyframe=KeyframeConfig(thresh_dist=0.5,
+                                                thresh_rot=45.0),
+        tsdf=TsdfConfig(voxel_size=0.2, truncation=0.6, max_blocks=16384,
+                        space_carving=False, scan_block_cap=2048))
+
+
+class _Probes:
+    """Wrappers around the system path's calls of kernels A and B: the
+    launches of A inside ``verify_loop`` and of B inside the archive's
+    fusion, the operands of the first such call of each (B: the first of
+    a fusion with a sign -1 entry once there is one, else the first), and
+    every call that reaches a plain version (there must be none on the
+    card)."""
+
+    def __init__(self):
+        from noetic_slam_tpu_torch.models import occupancy as occ_mod
+        from noetic_slam_tpu_torch.models import posegraph as pg
+        from noetic_slam_tpu_torch.models import tsdf as tsdf_mod
+        from noetic_slam_tpu_torch.ops import neighbors
+        from noetic_slam_tpu_torch.ops.cuda import nn_kernel, tsdf_kernel
+        from noetic_slam_tpu_torch.runtime import archive as ar_mod
+
+        self.where = None
+        self.signed = False
+        self.verify_a = self.archive_b = self.plain_calls = 0
+        self.nn = self.fuse = None
+        A, B = nn_kernel.nn1_fused, tsdf_kernel.block_accumulate
+
+        def verify(*a, **kw):
+            n0, self.where = A.launches, "verify"
+            try:
+                return self._orig[0][2](*a, **kw)
+            finally:
+                self.verify_a += A.launches - n0
+                self.where = None
+
+        def nn1(query, target, t_count=None, max_dist=None):
+            if self.where == "verify" and self.nn is None:
+                self.nn = tuple(x.clone() if hasattr(x, "clone") else x
+                                for x in (query, target, t_count, max_dist))
+            return self._orig[1][2](query, target, t_count, max_dist)
+
+        def fuse_scan(*a, **kw):
+            n0, self.where = B.launches, "archive"
+            self.signed = bool(np.any(np.asarray(a[7]) < 0))
+            try:
+                return self._orig[2][2](*a, **kw)
+            finally:
+                self.archive_b += B.launches - n0
+                self.where = None
+
+        def accumulate(weight, wsum, *args):
+            if self.where == "archive" and (
+                    self.fuse is None or (self.signed and not self.fuse[2])):
+                self.fuse = ((weight.clone(), wsum.clone()),
+                             tuple(x.clone() if hasattr(x, "clone") else x
+                                   for x in args), self.signed)
+            return self._orig[3][2](weight, wsum, *args)
+
+        def plain(orig):
+            def counted(*a, **kw):
+                self.plain_calls += 1
+                return orig(*a, **kw)
+            return counted
+
+        self._orig = [(pg, "verify_loop", pg.verify_loop, verify),
+                      (neighbors, "nn1", neighbors.nn1, nn1),
+                      (ar_mod, "_fuse_scan", ar_mod._fuse_scan, fuse_scan),
+                      (tsdf_mod, "block_accumulate", tsdf_mod.block_accumulate,
+                       accumulate)]
+        for mod, name in ((neighbors, "nn1_plain"),
+                          (tsdf_mod, "block_accumulate_plain"),
+                          (occ_mod, "logodds_accumulate_plain")):
+            fn = getattr(mod, name)
+            self._orig.append((mod, name, fn, plain(fn)))
+
+    def __enter__(self):
+        for mod, name, _, wrapper in self._orig:
+            setattr(mod, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn, _ in self._orig:
+            setattr(mod, name, fn)
+
+
+def _feeder(slam, sim):
+    """feed(through): push the sim's IMU samples up to ``through``."""
+    state = {"i": 0}
+
+    def feed(through):
+        i = state["i"]
+        while i < len(sim.imu_stamps) and sim.imu_stamps[i] <= through:
+            slam.push_imu(sim.imu_stamps[i], sim.imu_ang[i], sim.imu_acc[i])
+            i += 1
+        state["i"] = i
+
+    return feed
+
+
+def _batches(slam, scans, feed, lo, hi, close_calls=None):
+    """bench.py's loop: batches of SYSTEM_K scans through process_scans
+    and, when ``close_calls`` is a list, maybe_close_loop every third
+    batch (its host syncs, seconds and verdict appended)."""
+    for b0 in range(lo, hi, SYSTEM_K):
+        chunk = scans[b0:min(b0 + SYSTEM_K, hi)]
+        feed(max(h + pt.max() for h, _, pt in chunk) + 0.02)
+        slam.process_scans(chunk)
+        if close_calls is not None and b0 % (3 * SYSTEM_K) == 0 and b0 > 0:
+            s0, t0 = slam.host_syncs, time.perf_counter()
+            closed = slam.maybe_close_loop()
+            close_calls.append((slam.host_syncs - s0,
+                                time.perf_counter() - t0, closed))
+
+
+def _closure_line(log) -> str:
+    return "; ".join(
+        f"{c['source']} {c['cand_node']}->{c['cur_node']} correction "
+        f"{c['correction_m']:.3f} m, moved {c['moved_keyframes']} of "
+        f"{c['archived']}, {c['seconds']:.3f} s (t_optimize "
+        f"{c['t_optimize']:.3f}, t_apply {c['t_apply']:.3f}, t_map_sync "
+        f"{c['t_map_sync']:.3f})" for c in log) or "none"
+
+
+def phase_system(probes: _Probes):
+    """Phase 9: ``SlamSystem(pipelined=True)`` on the card at bench.py's
+    full width, driven as bench.py drives it (warmup, batches of 8,
+    maybe_close_loop every third batch, the first 32 scans untimed), the
+    launch counters set to 0 just before and read just after; then the
+    same scans through the fused step alone (``OdometryPipeline``) for its
+    rate in the same call."""
+    import torch
+
+    from noetic_slam_tpu_torch import SlamSystem
+    from noetic_slam_tpu_torch.runtime.pipeline import OdometryPipeline
+    from noetic_slam_tpu_torch.utils import synthetic
+
+    cfg = _system_cfg()
+    t0 = time.perf_counter()
+    sim = synthetic.make_sim(duration=SYSTEM_SCANS / 10.0 + 0.4,
+                             n_points=cfg.capacity.max_points,
+                             calib_time=3.1, seed=23,
+                             pose_fn=synthetic.spiral_pose_of,
+                             imu_noise=0.0005)
+    scans = [sim.scan(i) for i in range(SYSTEM_SCANS)]
+    sim_s = time.perf_counter() - t0
+    untimed = SYSTEM_UNTIMED
+    counters = _counters()
+    slam = SlamSystem(cfg, enable_tsdf=True, enable_loop_closure=True,
+                      loop_radius=4.0, loop_min_gap=15, pipelined=True)
+    _check(slam.device.type == "cuda", "system: not on the card")
+    feed = _feeder(slam, sim)
+    calls = []
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for fn in counters.values():
+        fn.launches = 0
+    with probes:
+        t0 = time.perf_counter()
+        slam.warmup()
+        warm_s = time.perf_counter() - t0
+        _batches(slam, scans, feed, 0, untimed, calls)
+        n_calls0 = len(calls)
+        s0, o0 = slam.host_syncs, slam.odometry.host_syncs
+        stages0 = slam.stages.snapshot()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        start.record()
+        _batches(slam, scans, feed, untimed, len(scans), calls)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    n_timed = len(scans) - untimed
+    syncs = slam.host_syncs - s0
+    step_syncs = slam.odometry.host_syncs - o0
+    peak = torch.cuda.max_memory_allocated()
+    stages = slam.stages.delta(stages0, slam.stages.snapshot())
+    slam.sync_graph()                 # drain the last cadence (lossless)
+    traj = slam.flush()
+    _check(len(traj) == len(scans), f"system: {len(traj)} of {len(scans)} "
+           "scans processed")
+    _check(bool(np.isfinite(traj).all()), "system: non-finite pose")
+    ate = synthetic.ate_rmse(traj[:, 0], traj[:, 1:4], sim.gt_stamps,
+                             sim.gt_pos)
+    _check(slam.sync_lost_keyframes == 0,
+           f"system: {slam.sync_lost_keyframes} keyframes lost")
+    total = int(slam.odometry.state.kf_total)
+    _check(slam._synced_total == total == len(slam.archive),
+           f"system: {slam._synced_total} synced, {total} created, "
+           f"{len(slam.archive)} archived")
+    _check(launches["nn1_fused"] > 0 and launches["block_accumulate"] > 0,
+           f"system: launches {launches}")
+    _check(launches["logodds_accumulate"] == 0,
+           "system: kernel C launched on the TSDF system")
+    _check(probes.archive_b > 0, "system: no archive fusion ran kernel B")
+    _check(probes.plain_calls == 0,
+           f"system: {probes.plain_calls} calls reached a plain version")
+    _check(bool(torch.isfinite(slam.tsdf.weight).all()),
+           "system: non-finite map weight")
+    timed_calls = calls[n_calls0:]
+    closing = [c for c in timed_calls if c[2]]
+    other = [c for c in timed_calls if not c[2]]
+
+    # the fused step alone on the same scans, batched the same way
+    pipe = OdometryPipeline(cfg, with_tsdf=True)
+    pfeed = _feeder(pipe, sim)
+    _batches(pipe, scans, pfeed, 0, untimed)
+    torch.cuda.synchronize()
+    f0, fs0 = time.perf_counter(), pipe.host_syncs
+    _batches(pipe, scans, pfeed, untimed, len(scans))
+    torch.cuda.synchronize()
+    fused_wall = time.perf_counter() - f0
+    fused_syncs = (pipe.host_syncs - fs0) / n_timed
+    del pipe
+
+    mean = lambda xs, k: (float(np.mean([x[k] for x in xs]))  # noqa: E731
+                          if xs else float("nan"))
+    print(f"[9 system] SlamSystem(pipelined=True), bench.py:286-351 at full "
+          f"width ({cfg.capacity.max_points} points, "
+          f"{cfg.capacity.max_ds_points} kept, {cfg.tsdf.max_blocks} blocks), "
+          f"{len(scans)} scans in batches of {SYSTEM_K}, maybe_close_loop "
+          f"every third batch, the first {untimed} untimed (sim "
+          f"{sim_s:.1f} s, warmup {warm_s:.2f} s): {n_timed / wall:.2f} scans/s wall "
+          f"({n_timed} scans in {wall:.2f} s; CUDA events "
+          f"{start.elapsed_time(end):.1f} ms); the fused step alone "
+          f"(OdometryPipeline, same scans and batches) "
+          f"{n_timed / fused_wall:.2f} scans/s, host syncs/scan "
+          f"{fused_syncs:.2f}; closures {slam.loop_closures} (descriptor "
+          f"{slam.loop_closures_descriptor}), raced attempts "
+          f"{slam.loop_raced}, budget rejects {slam.loop_rejected_budget}, "
+          f"skipped small {slam.loop_skipped_small}, sync_lost_keyframes "
+          f"{slam.sync_lost_keyframes}; keyframes {total}, archive "
+          f"{len(slam.archive)} entries, graph {int(slam.graph.n_nodes)} "
+          f"nodes / {int(slam.graph.n_edges)} edges; ATE {ate:.4f} m; "
+          f"peak memory {peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB "
+          f"before); host syncs/scan {syncs / n_timed:.2f} (the step's "
+          f"{step_syncs / n_timed:.2f}); maybe_close_loop calls in the "
+          f"window: {len(closing)} closing, {mean(closing, 0):.1f} host "
+          f"syncs and {mean(closing, 1):.3f} s each, {len(other)} not, "
+          f"{mean(other, 0):.1f} syncs and {mean(other, 1):.3f} s each; "
+          f"launches {launches} (A inside verify_loop {probes.verify_a}, B "
+          f"inside archive fusions {probes.archive_b}); closures: "
+          f"{_closure_line(slam.closure_log)}", flush=True)
+    for row in slam.stages.table().splitlines():
+        print(f"[9 system]   {row}", flush=True)
+    window = ", ".join(f"{k} {v['calls']} calls {v['total_s']:.3f} s"
+                       for k, v in sorted(stages.items(),
+                                          key=lambda kv: -kv[1]["total_s"]))
+    print(f"[9 system]   timed window only: {window}", flush=True)
+    return launches
+
+
+def _drift_loop_run(probes: _Probes, from_rest: bool) -> dict:
+    """One run of the drifting loop through ``SlamSystem`` on the card,
+    every keyframe synced, then one maybe_close_loop; from rest, the drift
+    of ``synthetic.linear_drift`` is added before it. The surface's median
+    error against the world as run, before and after the closing call."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from noetic_slam_tpu_torch import SlamSystem
+    from noetic_slam_tpu_torch.utils import synthetic
+
+    sim = synthetic.drift_loop_sim(from_rest)
+    scans = [sim.scan(i) for i in range(len(sim.scan_stamps))]
+    slam = SlamSystem(synthetic.drift_loop_cfg(), loop_radius=5.0,
+                      loop_min_gap=15)
+    feed = _feeder(slam, sim)
+    tree = cKDTree(sim.world)
+    median = lambda: float(np.median(                       # noqa: E731
+        tree.query(slam.surface_points(2.0))[0]))
+    # the starved registration alone draws a different drift on every
+    # machine (1 mm on one point of one scan sends it elsewhere), often too
+    # small for a closure to cut the map's error (PERF.md §6): from rest
+    # the run gets a known drift on top
+    out = {"scans": len(scans)}
+    with probes:
+        t0 = time.perf_counter()
+        for h, xyz, pt in scans:
+            feed(h + pt.max() + 0.02)
+            slam.process_scan(h, xyz, pt)
+        slam.sync_graph()
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        out["med_run"] = median()
+        traj = slam.flush()
+        _check(bool(np.isfinite(traj).all()), "closure: non-finite pose")
+        out["ate"] = synthetic.ate_rmse(traj[:, 0], traj[:, 1:4],
+                                        sim.gt_stamps, sim.gt_pos)
+        out["drift"] = 0.0
+        if from_rest:
+            n = slam._synced_total
+            q = slam.graph.node_q[:n].cpu().numpy()
+            p = slam.graph.node_p[:n].cpu().numpy()
+            q2, p2 = synthetic.linear_drift(q, p, synthetic.DRIFT_LOOP_YAW,
+                                            synthetic.DRIFT_LOOP_SHIFT)
+            slam.set_keyframe_poses(q2, p2)
+            out["drift"] = float(np.linalg.norm(p2[-1] - p[-1]))
+        out["med0"] = median()
+        s0 = slam.host_syncs
+        out["closed"] = slam.maybe_close_loop()
+        out["syncs"] = slam.host_syncs - s0
+    out["med1"] = median()
+    _check(slam.sync_lost_keyframes == 0,
+           f"closure: {slam.sync_lost_keyframes} keyframes lost")
+    out["keyframes"] = slam._synced_total
+    out["log"] = _closure_line(slam.closure_log)
+    return out
+
+
+def phase_closure(probes: _Probes):
+    """Phase 10: the drifting loop of tests/test_slam_system.py (a 100 m
+    circle at 5 Hz, starved registration, IMU noise) through ``SlamSystem``
+    on the card, the counters set to 0 just before and read just after.
+    First as the test has it: the closure's outcome and the error change
+    are printed, as the drift this card draws allows (PERF.md §6).
+    Then started from rest, the drift of ``synthetic.linear_drift`` added
+    once every keyframe is synced: one maybe_close_loop must close the
+    loop and cut the surface's median error against the world by at least
+    25%."""
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    test = _drift_loop_run(probes, from_rest=False)
+    rest = _drift_loop_run(probes, from_rest=True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _check(probes.plain_calls == 0,
+           f"closure: {probes.plain_calls} calls reached a plain version")
+    _check(rest["closed"], "closure: the drifting loop did not close")
+    _check(rest["med1"] < 0.75 * rest["med0"],
+           f"closure: surface median error {rest['med0']:.3f} -> "
+           f"{rest['med1']:.3f} m, not down 25%")
+
+    def change(r):
+        return (f"surface median error {r['med0']:.3f} -> {r['med1']:.3f} m "
+                f"({100 * (r['med1'] / r['med0'] - 1):+.0f}%)")
+
+    print(f"[10 closure] drifting loop (tests/test_slam_system.py:139-191) "
+          f"as the test has it: {test['scans']} scans in {test['run_s']:.1f}"
+          f" s, ATE {test['ate']:.4f} m, {test['keyframes']} keyframes; "
+          f"closed {test['closed']}, {change(test)}; the call "
+          f"{test['syncs']} host syncs; {test['log']}", flush=True)
+    print(f"[10 closure] from rest: {rest['scans']} scans in "
+          f"{rest['run_s']:.1f} s, ATE {rest['ate']:.4f} m and surface median "
+          f"error {rest['med_run']:.3f} m as run; drift added "
+          f"{rest['drift']:.3f} m at the last of {rest['keyframes']} "
+          f"keyframes; closed {rest['closed']}, "
+          f"{change(rest)}; the closing call {rest['syncs']} host syncs; "
+          f"{rest['log']}; launches (both runs) {launches}", flush=True)
+    return launches
+
+
+def phase_system_kernels(probes: _Probes) -> dict:
+    """Phase 11: kernels A and B against their plain versions on operands
+    kept from the system path: the first correspondence search inside a
+    ``verify_loop`` (two keyframe clouds with sentinel rows, the cap at
+    twice the correspondence distance) and an archive fusion's chunk
+    stream (NO_CLAMP, signs +-1), with B's exact +1/-1 cancellation; each
+    timed hot and cold beside its library call and its plain version."""
+    import torch
+
+    from noetic_slam_tpu_torch.models.tsdf import BlockRuns
+    from noetic_slam_tpu_torch.ops.cuda import nn_kernel as nk
+    from noetic_slam_tpu_torch.ops.cuda.tsdf_kernel import (
+        block_accumulate,
+        block_accumulate_plain,
+    )
+
+    _check(probes.nn is not None, "system kernels: no verify_loop search kept")
+    _check(probes.fuse is not None, "system kernels: no archive fusion kept")
+    q, tgt, count, cap = probes.nn
+    live = (torch.abs(q) < 1e5).all(dim=-1)
+    fk, ties, err_a, d_plain = nn_check("verify_loop", nk.nn1_fused, q, tgt,
+                                        count, float(cap),
+                                        live.cpu().numpy())
+    ta = _turns(lambda: nk.nn1_fused(q, tgt, count, cap),
+                nn_library(q, tgt, tgt.shape[0]), iters=20, n_cold=10)
+    plain_a = _time_ms(lambda: nk.nn1_plain(q, tgt, count, cap), 3)
+    pairs = nk.needed_pairs(q, tgt, count, cap, d_plain, t_tile=BOUND_TILE)
+    bound_a, by_a = _bound(q.shape[0] * 20 + tgt.shape[0] * 12, 8.0 * pairs)
+
+    (W, WS), args, signed = probes.fuse
+    rows, starts, cnts, ivox, w, wd, max_weight = args
+    r = BlockRuns(rows, starts, cnts, None)
+    stream = (rows, starts, cnts, ivox, w, wd)
+    hit = _hit_mask(r, ivox, W.numel())
+    _, err_b = _check_accum("system archive", block_accumulate,
+                            block_accumulate_plain, (W, WS), stream,
+                            (max_weight,), hit, TOL)
+    _check_cancel("system archive", block_accumulate, W, stream,
+                  (max_weight,))
+    work = [W.clone(), WS.clone()]
+    flat, spos = _stream_addresses(r, ivox)
+    vals = torch.stack([w[spos], wd[spos]], dim=1)
+    lib_pay = torch.zeros((W.numel(), 2), device=W.device)
+    tb = _turns(lambda: block_accumulate(*work, *stream, max_weight),
+                lambda: lib_pay.index_add_(0, flat, vals))
+    plain_b = _time_ms(lambda: block_accumulate_plain(*work, *stream,
+                                                      max_weight), 5)
+    n_samples, n_vox = _voxel_counts(r, ivox)
+    bound_b, by_b = _bound(12 * rows.shape[0] + 12 * n_samples + 16 * n_vox,
+                           2 * n_samples + 5 * n_vox)
+    print(f"[11 system kernels] A on the first verify_loop search: "
+          f"{q.shape[0]} queries ({int(live.sum())} live) x {tgt.shape[0]} "
+          f"rows, cap {float(cap):.3f} m: found {int(fk.sum())}, idx ties "
+          f"{ties}, "
+          f"max |dsqd| {err_a:.3e}, sentinel queries find nothing; kernel "
+          f"{ta['ms']:.4f} ms hot / {ta['ms_cold']:.4f} cold, cdist+amin "
+          f"{ta['library_ms']:.3f} / {ta['library_ms_cold']:.3f}, plain "
+          f"{plain_a:.3f} ms, bound {bound_a:.5f} ms ({by_a}; {pairs} "
+          f"pairs). B on an archive chunk ({'with' if signed else 'without'}"
+          f" sign -1 entries): {_accum_line_short(r, ivox)}, max |d| "
+          f"{err_b:.3e}, two runs bitwise equal, +1/-1 exact, unhit voxels "
+          f"unchanged; kernel {tb['ms']:.4f} ms hot / {tb['ms_cold']:.4f} "
+          f"cold, index_add_ {tb['library_ms']:.4f} / "
+          f"{tb['library_ms_cold']:.4f}, plain {plain_b:.3f} ms, bound "
+          f"{bound_b:.5f} ms ({by_b})", flush=True)
+    return {
+        "nn1_fused": {"system_max_abs_err": err_a, "system_ms": ta["ms"],
+                      "system_ms_cold": ta["ms_cold"],
+                      "system_library_ms": ta["library_ms"],
+                      "system_library_ms_cold": ta["library_ms_cold"],
+                      "system_plain_ms": plain_a, "system_bound_ms": bound_a,
+                      "system_bound_by": by_a},
+        "block_accumulate": {"system_max_abs_err": err_b,
+                             "system_ms": tb["ms"],
+                             "system_ms_cold": tb["ms_cold"],
+                             "system_library_ms": tb["library_ms"],
+                             "system_library_ms_cold": tb["library_ms_cold"],
+                             "system_plain_ms": plain_b,
+                             "system_bound_ms": bound_b,
+                             "system_bound_by": by_b}}
+
+
+def _accum_line_short(r, ivox) -> str:
+    n_samples, n_vox = _voxel_counts(r, ivox)
+    n_blocks, largest, chain, _ = _entry_shape(r)
+    return (f"{ivox.shape[0]} samples ({n_samples} in {n_blocks} real "
+            f"entries, {n_vox} voxels), largest {largest}, longest chain "
+            f"{chain} tiles")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scans", type=int, default=60,
@@ -1032,17 +1538,28 @@ def main(argv=None) -> int:
         cfg, sim, scans, OCC_SCANS, args.profile)
     phase_map_products(cfg.tsdf, tsdf_pipe.tsdf_state, tsdf_traj,
                        cfg.occupancy, occ_pipe.tsdf_state, occ_traj)
+    del tsdf_pipe, occ_pipe
     # A and B from the main path, C from the occupancy path
     launches["logodds_accumulate"] = occ_launches["logodds_accumulate"]
+
+    probes = _Probes()
+    system_launches = phase_system(probes)
+    closure_launches = phase_closure(probes)
+    _check(probes.verify_a > 0, "no verify_loop call launched kernel A")
+    extra = phase_system_kernels(probes)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         _check(k["launches"] > 0, f"{k['name']} never launched on its path")
+        k["system_launches"] = system_launches[k["name"]]
+        k["closure_launches"] = closure_launches[k["name"]]
+        k.update(extra.get(k["name"], {}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_cold",
             "library_ms_cold")
     print(json.dumps({"kernels": [
         {**{key: k[key] for key in keys},
-         **{key: v for key, v in k.items() if key.startswith("main_shape")}}
+         **{key: v for key, v in k.items()
+            if key.startswith(("main_shape", "system", "closure"))}}
         for k in kernels]}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

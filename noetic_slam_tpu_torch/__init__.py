@@ -11,7 +11,14 @@ the same path:
 - ``models``               — the odometry step, the fused SLAM step, the
                              TSDF and occupancy backends, the ESDF and the
                              sparse keyframe map.
+- ``models.posegraph``, ``models.placedesc`` — the keyframe pose graph
+                             (GN, PCG, loop verification) and the place
+                             descriptors.
 - ``runtime.pipeline``     — the host-side ``OdometryPipeline``.
+- ``runtime.slam``         — ``SlamSystem``: odometry, map, pose graph, loop
+                             closure, the keyframe archive
+                             (``runtime.archive``) and checkpoints
+                             (``runtime.checkpoint``).
 - ``io``                   — dataset replay, the MulRan reader, the PLY /
                              PCD / TUM writers and surface-nets meshing.
 - ``config``, ``utils.synthetic`` — the configuration dataclasses and the
@@ -20,11 +27,13 @@ the same path:
 
 The JAX package stays the reference. The port imports ``torch`` and numpy,
 never ``jax`` and nothing of the JAX package: where it needs one of that
-package's numpy-only modules (``config.params``, ``utils.synthetic``,
-``io.mulran``, ``io.export``) it keeps its own copy, which
-``tests/test_torch_copies.py`` holds to the original.
+package's numpy-only code (``config.params``, ``utils.synthetic``,
+``io.mulran``, ``io.export``, ``runtime.poseext``, ``StageTimer`` of
+``runtime.profiling``, ``ring_descriptor`` of ``models.placedesc``) it keeps
+its own copy, which ``tests/test_torch_copies.py`` holds to the original.
 
-Entry points run on the card unless the caller names another device: a
+Entry points (``SlamSystem``, ``OdometryPipeline``, the ``init_*``
+functions) run on the card unless the caller names another device: a
 ``device`` argument left at ``None`` means ``device()``, which raises where
 there is no card (the tests pass ``"cpu"``).
 
@@ -55,3 +64,13 @@ def device() -> torch.device:
 def resolve_device(dev=None) -> torch.device:
     """``dev`` as a ``torch.device``; ``None`` means the card (``device()``)."""
     return device() if dev is None else torch.device(dev)
+
+
+def __getattr__(name):
+    # ``SlamSystem`` at the package root, imported on first use (the
+    # runtime imports this module for ``resolve_device``)
+    if name == "SlamSystem":
+        from noetic_slam_tpu_torch.runtime.slam import SlamSystem
+
+        return SlamSystem
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

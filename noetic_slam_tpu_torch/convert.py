@@ -5,7 +5,9 @@ The odometry and map states (TSDF or occupancy) are this system's
 arrays, carry it into the port with ``*_state_from_numpy``, and run one
 step of both implementations from the same state. ``*_to_numpy`` is
 the reverse. Fields are matched by name; JAX fields the port does not
-carry (the grid-NN index) are ignored.
+carry (the grid-NN index) are ignored. The pose graph carries across the
+same way; the keyframe archive and the descriptor store carry across
+through their numpy ``pack`` / ``unpack``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from noetic_slam_tpu_torch.models.occupancy import OccupancyState
 from noetic_slam_tpu_torch.models.odometry import OdomState
+from noetic_slam_tpu_torch.models.posegraph import PoseGraph
 from noetic_slam_tpu_torch.models.tsdf import TsdfState
 
 
@@ -66,3 +69,14 @@ def occupancy_state_from_numpy(state, device) -> OccupancyState:
 def occupancy_state_to_numpy(state: OccupancyState) -> dict:
     """{field: ndarray} of a port ``OccupancyState``."""
     return _to_numpy(state)
+
+
+def posegraph_from_numpy(graph, device) -> PoseGraph:
+    """A ``PoseGraph`` on ``device`` from a JAX ``PoseGraph`` (or any
+    mapping / NamedTuple of arrays with its field names)."""
+    return _from_numpy(PoseGraph, graph, device)
+
+
+def posegraph_to_numpy(graph: PoseGraph) -> dict:
+    """{field: ndarray} of a port ``PoseGraph``."""
+    return _to_numpy(graph)

@@ -245,24 +245,38 @@ nn1_fused.launches = 0
 
 
 def nn1_plain(query: Tensor, target: Tensor, t_count=None, max_dist=None, *,
-              query_chunk: int = 512, target_chunk: int = 8192
+              query_chunk: int | None = None, target_chunk: int | None = None
               ) -> tuple[Tensor, Tensor]:
     """Plain torch version of kernel A: chunked brute force by direct
-    differences (the chunking of JAX's ``_nn1_xla``), same contract.
+    differences, same contract. Each chunk's squared distances are built
+    per coordinate, (dx*dx + dy*dy) + dz*dz (``sq_norm3``'s order). The
+    chunks default to (256, 1024) on the CPU, where they stay in cache,
+    and to (512, 8192) on the card, where each is a few launches.
     Reads ``t_count`` on the host."""
     dev = query.device
+    if query_chunk is None:
+        query_chunk = 512 if query.is_cuda else 256
+    if target_chunk is None:
+        target_chunk = 8192 if query.is_cuda else 1024
     nq, nt = query.shape[0], target.shape[0]
     limit = nt if t_count is None else max(0, min(int(t_count), nt))
     cap2 = _cap2(max_dist, dev)
     best_d = torch.full((nq,), torch.inf, dtype=torch.float32, device=dev)
     best_i = torch.zeros((nq,), dtype=torch.int64, device=dev)
+    tt = target[:limit].T.contiguous()                     # (3, limit)
     for q0 in range(0, nq, query_chunk):
         qc = query[q0:q0 + query_chunk]
         bd = best_d[q0:q0 + query_chunk]
         bi = best_i[q0:q0 + query_chunk]
         for t0 in range(0, limit, target_chunk):
-            tc = target[t0:min(t0 + target_chunk, limit)]
-            dmin, a = sq_norm3(qc[:, None, :] - tc[None, :, :]).min(dim=1)
+            tx, ty, tz = tt[:, t0:t0 + target_chunk]
+            d = qc[:, 0:1] - tx
+            d.mul_(d)
+            e = qc[:, 1:2] - ty
+            d.add_(e.mul_(e))
+            torch.sub(qc[:, 2:3], tz, out=e)
+            d.add_(e.mul_(e))
+            dmin, a = d.min(dim=1)
             better = dmin < bd
             bd.copy_(torch.where(better, dmin, bd))
             bi.copy_(torch.where(better, a + t0, bi))

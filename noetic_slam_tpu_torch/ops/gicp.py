@@ -13,8 +13,9 @@ The two ``lax.while_loop``s of ``gicp_align`` become:
   once per iteration (each iteration costs an NN search anyway). Every
   such read is counted in ``syncs`` (see ``HostSyncs``).
 
-``plane_covariances`` (``cov_engine="knn"``) and the grid NN engine are not
-ported yet.
+``plane_covariances`` is ported for the brute-force kNN only (the keyframe
+archive's closure path); its grid-NN branch (``use_grid=True``) waits with
+``ops/gridnn.py``, and ``cov_engine="knn"`` is not wired into the step.
 """
 
 from __future__ import annotations
@@ -91,9 +92,10 @@ def _inv3_sym(m: Tensor) -> Tensor:
     return adj.reshape(m.shape) * inv_det[..., None, None]
 
 
-def _smallest_eigvec_sym3(m: Tensor) -> Tensor:
-    """Unit eigenvector of the smallest eigenvalue of symmetric 3x3
-    (batched): trigonometric eigenvalues + null-space cross products."""
+def sym3_min_eig(m: Tensor) -> tuple[Tensor, Tensor]:
+    """(smallest eigenvalue, p2) of symmetric 3x3 (batched), by the
+    trigonometric closed form; p2 = |A - tr(A)/3 I|_F^2, 0 for an isotropic
+    matrix. No LAPACK call, so nothing waits on the host."""
     a00, a01, a02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     a11, a12, a22 = m[..., 1, 1], m[..., 1, 2], m[..., 2, 2]
     q = (a00 + a11 + a22) / 3.0
@@ -104,9 +106,20 @@ def _smallest_eigvec_sym3(m: Tensor) -> Tensor:
     detb = (b00 * (b11 * b22 - a12 * a12)
             - a01 * (a01 * b22 - a12 * a02)
             + a02 * (a01 * a12 - b11 * a02))
-    r = torch.clamp(detb / (2.0 * p * p * p), -1.0, 1.0)
+    # 0/0 where p^3 underflows (a nearly isotropic matrix): any angle will
+    # do, take 0
+    r = torch.clamp(torch.nan_to_num(detb / (2.0 * p * p * p), nan=0.0),
+                    -1.0, 1.0)
     phi = torch.arccos(r) / 3.0
-    lam_min = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    return q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0), p2
+
+
+def _smallest_eigvec_sym3(m: Tensor) -> Tensor:
+    """Unit eigenvector of the smallest eigenvalue of symmetric 3x3
+    (batched): trigonometric eigenvalues + null-space cross products."""
+    a00, a01, a02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    a11, a12, a22 = m[..., 1, 1], m[..., 1, 2], m[..., 2, 2]
+    lam_min, p2 = sym3_min_eig(m)
 
     r0 = torch.stack([a00 - lam_min, a01, a02], dim=-1)
     r1 = torch.stack([a01, a11 - lam_min, a12], dim=-1)
@@ -173,6 +186,29 @@ def radius_covariances(xyz: Tensor, valid: Tensor, radius: float = 0.5,
 
     per_point = 2.0 * sig2 / torch.clamp(mom[:, 0], min=1.0)
     density = torch.sum(per_point * w_valid) / cnt
+    return mat_to_sym6(reg), density
+
+
+def plane_covariances(xyz: Tensor, valid: Tensor, k: int = 16):
+    """Per-point plane-regularised covariances from the k nearest
+    neighbours within the same cloud (self included): the neighbour
+    covariance's smallest eigenvector n gives I - (1 - 1e-3) n n^T; the
+    density is the mean over valid points of sum(sqd[1:]) /
+    ((k-1)(k+2)/2). Brute-force kNN (``neighbors.knn``), the JAX
+    function's ``use_grid=False`` branch.
+
+    Returns (covs (N, 6), density ())."""
+    idx, sqd = neighbors.knn(xyz, xyz, k)
+    nb = xyz[idx]                                          # (N, k, 3)
+    d = nb - torch.mean(nb, dim=1, keepdim=True)
+    cov = torch.einsum("nki,nkj->nij", d, d) / k
+    n = _smallest_eigvec_sym3(cov)
+    eye = torch.eye(3, dtype=xyz.dtype, device=xyz.device)
+    reg = eye - (1.0 - 1e-3) * n[..., :, None] * n[..., None, :]
+    reg = torch.where(valid[:, None, None], reg, eye)
+    per_point = torch.sum(sqd[:, 1:], dim=-1) / (((k - 1) * (2 + k)) / 2.0)
+    w = valid.to(xyz.dtype)
+    density = torch.sum(per_point * w) / torch.clamp(w.sum(), min=1.0)
     return mat_to_sym6(reg), density
 
 

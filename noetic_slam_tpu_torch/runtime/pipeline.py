@@ -21,7 +21,6 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from noetic_slam_tpu_torch import resolve_device
 from noetic_slam_tpu_torch.config import DlioConfig
@@ -35,6 +34,7 @@ from noetic_slam_tpu_torch.models.odometry import (
 from noetic_slam_tpu_torch.models.occupancy import init_occupancy
 from noetic_slam_tpu_torch.models.tsdf import init_tsdf
 from noetic_slam_tpu_torch.ops.gicp import HostSyncs
+from noetic_slam_tpu_torch.utils.host import to_device
 
 
 class NeedMoreImu(Exception):
@@ -211,15 +211,7 @@ class OdometryPipeline:
 
     def _to_device(self, packed) -> StepInput:
         points, imu, scalars, pts_t = packed
-        pin = self.device.type == "cuda"
-
-        def dev(a):
-            # from pinned memory the copy is asynchronous; from pageable
-            # memory it would synchronise the stream
-            t = torch.from_numpy(a)
-            return (t.pin_memory() if pin else t).to(self.device,
-                                                     non_blocking=True)
-
+        dev = lambda a: to_device(a, self.device)          # noqa: E731
         return StepInput(points=dev(points), imu=dev(imu),
                          scalars=dev(scalars),
                          pt=None if pts_t is None else dev(pts_t))

@@ -3,14 +3,16 @@
 Conventions are the JAX module's: quaternions are ``(..., 4)`` ``(w, x, y,
 z)`` (Hamilton), poses are (q, p) pairs or 4x4 homogeneous matrices, every
 function broadcasts over leading batch dims. The host-side numpy helpers
-(``quat_to_mat_np``, ``make_se3_np``, ``mat_to_quat_np``) are not ported:
-they are numpy already and have no caller in the port.
+(``quat_to_mat_np``, ``make_se3_np``, ``mat_to_quat_np``, used at keyframe
+rate by ``runtime.slam`` and ``runtime.archive``) are the port's own copies,
+held to the originals by ``tests/test_torch_copies.py``.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -167,3 +169,43 @@ def quat_angle_deg(q1: Tensor, q2: Tensor) -> Tensor:
     theta = 2.0 * torch.atan2(torch.linalg.vector_norm(dq[..., 1:], dim=-1),
                               torch.abs(dq[..., 0]))
     return theta * (180.0 / math.pi)
+
+
+def quat_to_mat_np(q) -> np.ndarray:
+    """Host-side numpy quat->matrix (same maths as quat_to_mat), f32."""
+    w, x, y, z = np.asarray(q, np.float64)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ], np.float32)
+
+
+def make_se3_np(q, p) -> np.ndarray:
+    """Host-side numpy (q, p) -> homogeneous 4x4, f32."""
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = quat_to_mat_np(q)
+    T[:3, 3] = np.asarray(p, np.float32)
+    return T
+
+
+def mat_to_quat_np(m) -> np.ndarray:
+    """Host-side numpy rotation matrix -> quaternion wxyz (same candidate
+    selection as mat_to_quat; w >= 0 canonical)."""
+    m = np.asarray(m, np.float64)
+    m00, m01, m02 = m[0, 0], m[0, 1], m[0, 2]
+    m10, m11, m12 = m[1, 0], m[1, 1], m[1, 2]
+    m20, m21, m22 = m[2, 0], m[2, 1], m[2, 2]
+    tr = m00 + m11 + m22
+    cand = np.array([
+        [1.0 + tr, m21 - m12, m02 - m20, m10 - m01],
+        [m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20],
+        [m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21],
+        [m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22]])
+    scores = np.array([1.0 + tr, 1.0 + m00 - m11 - m22,
+                       1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22])
+    q = cand[int(np.argmax(scores))]
+    q = q / np.linalg.norm(q)
+    if q[0] < 0:
+        q = -q
+    return q.astype(np.float32)

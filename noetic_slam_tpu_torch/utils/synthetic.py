@@ -332,3 +332,68 @@ def ate_rmse(traj_stamps, traj_pos, gt_stamps, gt_pos,
         est = (R @ (est - mu_e).T).T + mu_g
     err = est - gt
     return float(np.sqrt(np.mean(np.sum(err ** 2, axis=-1))))
+
+
+# ---------------------------------------------------------------------------
+# The drifting closed loop of tests/test_slam_system.py:139-191, shared by the
+# port's system tests, chip_smoke.py's closure phase and
+# scripts/drift_draws.py (the port's own; the JAX module has no counterpart)
+
+# A drift that a closure of the loop started from rest must correct: at the
+# last keyframe a yaw [rad] about the first and a shift [m] (``linear_drift``)
+DRIFT_LOOP_YAW = 0.03
+DRIFT_LOOP_SHIFT = (0.3, 0.0, 0.8)
+
+def drift_loop_cfg():
+    """The drifting loop's configuration: 2048 points, 1 m keyframes and a
+    starved GICP budget (6 outer / 4 LM iterations), so the odometry drifts
+    and a loop closure has something to correct."""
+    from noetic_slam_tpu_torch.config import (
+        CapacityConfig,
+        DlioConfig,
+        GicpConfig,
+        KeyframeConfig,
+        TsdfConfig,
+    )
+
+    return DlioConfig(
+        capacity=CapacityConfig(
+            max_points=4096, max_ds_points=2048, max_deskew_frames=1024,
+            max_imu_window=128, max_keyframes=64, max_submap_kf=32),
+        keyframe=KeyframeConfig(thresh_dist=1.0, thresh_rot=45.0),
+        adaptive=False,
+        gicp=GicpConfig(max_iterations=6, lm_max_iterations=4),
+        tsdf=TsdfConfig(voxel_size=0.2, truncation=0.6, max_blocks=8192,
+                        space_carving=False))
+
+
+def drift_loop_sim(from_rest: bool = False) -> Sim:
+    """The drifting loop: a 100 m circle (``loop_pose_of``) at 5 Hz, 2048
+    points, IMU noise 0.001, seed 13, 20 s. ``from_rest`` starts it with
+    ``ramp_start`` (0.8 s longer), so that the first scan, which is not
+    deskewed, is not smeared by the full speed."""
+    pose_fn = ramp_start(loop_pose_of) if from_rest else loop_pose_of
+    return make_sim(duration=20.8 if from_rest else 20.0, scan_hz=5.0,
+                    n_points=2048, calib_time=3.1, seed=13, pose_fn=pose_fn,
+                    imu_noise=0.001)
+
+
+def linear_drift(q, p, yaw: float, shift):
+    """Poses ((n, 4) wxyz, (n, 3)) with a drift that grows linearly along
+    their order, from none at the first to, at the last, a yaw of ``yaw``
+    [rad] about the first position and a shift ``shift`` [m]. float32."""
+    q = np.asarray(q, np.float64)
+    p = np.asarray(p, np.float64)
+    f = np.linspace(0.0, 1.0, len(p))
+    a = yaw * f
+    c, s = np.cos(a), np.sin(a)
+    d = p - p[:1]
+    p2 = (np.stack([c * d[:, 0] - s * d[:, 1], s * d[:, 0] + c * d[:, 1],
+                    d[:, 2]], axis=-1)
+          + p[:1] + f[:, None] * np.asarray(shift, np.float64))
+    # the yaw (cos a/2, 0, 0, sin a/2) composed on the left of each pose
+    hw, hz = np.cos(a / 2), np.sin(a / 2)
+    w, x, y, z = q.T
+    q2 = np.stack([hw * w - hz * z, hw * x - hz * y, hw * y + hz * x,
+                   hw * z + hz * w], axis=-1)
+    return q2.astype(np.float32), p2.astype(np.float32)

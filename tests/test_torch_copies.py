@@ -1,7 +1,8 @@
-"""The port keeps its own copies of the JAX package's numpy-only modules
-(it imports nothing of that package). Each copy is held to its original:
-the config dataclasses field by field, the simulator's arrays, the MulRan
-reader's output and the writers' bytes."""
+"""The port keeps its own copies of the JAX package's numpy-only code (it
+imports nothing of that package). Each copy is held to its original: the
+config dataclasses field by field, the simulator's arrays, the MulRan
+reader's output, the writers' bytes, the pose extrapolator's poses, the
+stage timer's tables, the ring descriptors and the host geometry helpers."""
 
 import dataclasses
 import os
@@ -12,10 +13,18 @@ import pytest
 from noetic_slam_tpu.config import params as jparams
 from noetic_slam_tpu.io import export as jexport
 from noetic_slam_tpu.io import mulran as jmulran
+from noetic_slam_tpu.models import placedesc as jplacedesc
+from noetic_slam_tpu.runtime import poseext as jposeext
+from noetic_slam_tpu.runtime import profiling as jprofiling
+from noetic_slam_tpu.utils import geometry as jgeom
 from noetic_slam_tpu.utils import synthetic as jsyn
 from noetic_slam_tpu_torch.config import params as tparams
 from noetic_slam_tpu_torch.io import export as texport
 from noetic_slam_tpu_torch.io import mulran as tmulran
+from noetic_slam_tpu_torch.models import placedesc as tplacedesc
+from noetic_slam_tpu_torch.runtime import poseext as tposeext
+from noetic_slam_tpu_torch.runtime import profiling as tprofiling
+from noetic_slam_tpu_torch.utils import geometry as tgeom
 from noetic_slam_tpu_torch.utils import synthetic as tsyn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,3 +124,74 @@ def test_writers_identical_bytes(tmp_path):
     for name in ("a.ply", "b.ply", "m.ply", "c.pcd", "t.tum"):
         assert ((tmp_path / "t" / name).read_bytes()
                 == (tmp_path / "j" / name).read_bytes()), name
+
+
+class _Pipe:
+    """The pipeline attributes the extrapolator reads: the IMU buffer."""
+
+    def __init__(self, sim):
+        self._imu_stamps = sim.imu_stamps.astype(np.float64)
+        self._imu_ang = sim.imu_ang.astype(np.float64)
+        self._imu_acc = sim.imu_acc.astype(np.float64)
+
+
+def test_pose_extrapolator_equal():
+    sim = tsyn.make_sim(duration=1.0, seed=4)
+    rng = np.random.default_rng(4)
+    seed = (np.asarray([0.9, 0.1, -0.2, 0.3]) / np.linalg.norm(
+        [0.9, 0.1, -0.2, 0.3]), rng.normal(size=3), rng.normal(size=3),
+        rng.normal(scale=0.01, size=3), rng.normal(scale=0.05, size=3))
+    out = []
+    for mod, cfgmod in ((tposeext, tparams), (jposeext, jparams)):
+        ext = mod.PoseExtrapolator(cfgmod.DlioConfig(), _Pipe(sim))
+        assert ext.pose_at(0.5) is None
+        ext.seed(0.2, *seed)
+        # monotone queries, one backwards, past the last sample
+        out.append([ext.pose_at(t) for t in (0.21, 0.4, 0.73, 0.3, 1.5)])
+    for (qa, pa), (qb, pb) in zip(*out):
+        np.testing.assert_array_equal(qa, qb)
+        np.testing.assert_array_equal(pa, pb)
+
+
+def test_stage_timer_equal(monkeypatch):
+    """Both timers on one fake clock: equal totals, counts, tables and
+    deltas."""
+    ticks = iter(np.arange(0.0, 100.0, 0.25))
+    monkeypatch.setattr("time.perf_counter", lambda: float(next(ticks)))
+    timers = (tprofiling.StageTimer(), jprofiling.StageTimer())
+    snaps = []
+    for st in timers:
+        for name in ("fetch", "fuse", "fetch"):
+            with st(name):
+                pass
+        before = st.snapshot()
+        with st("verify"):
+            pass
+        snaps.append((st.table(), st.mean_ms("fetch"),
+                      type(st).delta(before, st.snapshot())))
+    assert snaps[0] == snaps[1]
+
+
+def test_ring_descriptor_equal():
+    rng = np.random.default_rng(5)
+    for n in (0, 5, 4000):
+        xyz = rng.uniform(-50, 50, (n, 3)).astype(np.float32)
+        valid = rng.random(n) > 0.2
+        np.testing.assert_array_equal(tplacedesc.ring_descriptor(xyz, valid),
+                                      jplacedesc.ring_descriptor(xyz, valid))
+    assert (tplacedesc.N_RINGS, tplacedesc.N_SECTORS) == (
+        jplacedesc.N_RINGS, jplacedesc.N_SECTORS)
+
+
+def test_host_geometry_equal():
+    rng = np.random.default_rng(6)
+    for _ in range(20):
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        p = rng.normal(size=3)
+        np.testing.assert_array_equal(tgeom.quat_to_mat_np(q),
+                                      jgeom.quat_to_mat_np(q))
+        T = tgeom.make_se3_np(q, p)
+        np.testing.assert_array_equal(T, jgeom.make_se3_np(q, p))
+        np.testing.assert_array_equal(tgeom.mat_to_quat_np(T[:3, :3]),
+                                      jgeom.mat_to_quat_np(T[:3, :3]))

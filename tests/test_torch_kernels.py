@@ -413,7 +413,7 @@ def _nn_kernel_vs_plain(q, t, count, cap, dev, count_as_tensor=True):
     (idx, sqd) as numpy."""
     qd, td = to_torch(q, dev), to_torch(t, dev)
     cnt = (torch.tensor(count, dtype=torch.int32, device=dev)
-           if count_as_tensor else count)
+           if count_as_tensor and count is not None else count)
     runs = []
     for _ in range(2):
         before = nk.nn1_fused.launches
@@ -601,3 +601,161 @@ def test_logodds_accumulate_kernel_rejects_bad_input(rng, cuda_device):
         lk.logodds_accumulate(L, s[0].long(), *s[1:], -2.0, 3.5)
     with pytest.raises(ValueError, match="lengths differ"):
         lk.logodds_accumulate(L, *s[:4], s[4][:-1], -2.0, 3.5)
+
+
+# ---------------------------------------------------------------------------
+# The whole system's new calls of kernels A and B (runtime/slam.py,
+# runtime/archive.py): the archive's signed four-keyframe streams and
+# verify_loop's correspondence search
+# ---------------------------------------------------------------------------
+
+def _keyframes(rng, n=4, npts=2048):
+    """n archive entries: int16 local-frame clouds of two walls and a floor
+    (a few rows invalid), at poses 0.7 m apart with some yaw."""
+    m = npts // 3
+    xyz_q, valid = [], []
+    for _ in range(n):
+        k = npts - 2 * m
+        pts = np.concatenate([
+            np.c_[rng.uniform(-8, 8, m), np.full(m, 4.0),
+                  rng.uniform(0, 3, m)],
+            np.c_[np.full(m, 9.0), rng.uniform(-4, 4, m),
+                  rng.uniform(0, 3, m)],
+            np.c_[rng.uniform(-8, 9, k), rng.uniform(-4, 4, k),
+                  np.full(k, -1.0)]])
+        xyz_q.append(np.round(pts / 2e-3).astype(np.int16))
+        valid.append(rng.random(npts) > 0.02)
+    yaw = rng.uniform(-0.3, 0.3, n)
+    q = np.stack([np.cos(yaw / 2), 0 * yaw, 0 * yaw, np.sin(yaw / 2)], -1)
+    p = np.stack([np.arange(n) * 0.7, rng.normal(0, 0.2, n), np.zeros(n)],
+                 -1)
+    return (np.stack(xyz_q), np.full((n,), 2e-3, np.float32),
+            np.stack(valid), q.astype(np.float32), p.astype(np.float32))
+
+
+def _archive_stream(entries, sign, dev):
+    """Kernel B's operands of one archive chunk (``_CHUNK_KF`` entries with
+    per-entry signs) into an empty NO_CLAMP volume of the live map's
+    config: (payload shape, (rows, starts, cnts, ivox, w, wd))."""
+    from noetic_slam_tpu_torch.config import TsdfConfig
+    from noetic_slam_tpu_torch.models import tsdf as tsdf_mod
+    from noetic_slam_tpu_torch.runtime import archive as ar
+
+    cfg = TsdfConfig(voxel_size=0.2, truncation=0.6, max_blocks=4096,
+                     space_carving=False, scan_block_cap=2048,
+                     max_weight=tk.NO_CLAMP)
+    t = [to_torch(a, dev) for a in entries]
+    parts = []
+    for b in range(len(sign)):
+        world = ar._world(t[0][b], t[1][b], t[3][b], t[4][b])
+        pos, sdf, w = tsdf_mod._ray_samples(cfg, world, t[2][b], t[4][b])
+        parts.append((pos, sdf, w * float(sign[b])))
+    pos, sdf, w = (torch.cat(c) for c in zip(*parts))
+    st = tsdf_mod.init_tsdf(cfg, dev)
+    _, r, stream = tsdf_mod.block_stream(cfg, st, pos, sdf, w)
+    assert int((r.cnts > 0).sum()) > 100
+    return st.weight.shape, tuple(to_np(a) for a in (r.rows, r.starts,
+                                                      r.cnts, *stream))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [(1, 1, 1, 1), (-1, 1, -1, 1)])
+def test_block_accumulate_archive_chunk(rng, cuda_device, sign):
+    """Kernel B on an archive chunk's stream (four keyframes, NO_CLAMP,
+    signs +-1) over a payload with history: equal to its plain version,
+    bitwise repeatable, unhit voxels unchanged; and the chunk fused +1 then
+    -1 into a zero payload returns it to exactly 0."""
+    shape, s = _archive_stream(_keyframes(rng), sign, cuda_device)
+    W, WS = _payload(rng, C=shape[0], max_weight=50.0)
+    _kernel_vs_plain("B", (W, WS), s, (tk.NO_CLAMP,), cuda_device)
+    out = [torch.zeros(shape, device=cuda_device) for _ in range(2)]
+    s_t = [to_torch(a, cuda_device) for a in s]
+    tk.block_accumulate(*out, *s_t, tk.NO_CLAMP)
+    assert bool((out[0] != 0).any())
+    tk.block_accumulate(*out, *s_t[:4], -s_t[4], -s_t[5], tk.NO_CLAMP)
+    assert all(bool((x == 0).all()) for x in out)
+
+
+@pytest.mark.cuda
+def test_archive_entry_is_independent_of_its_batch_position(rng,
+                                                            cuda_device):
+    """On the card: one entry fused at position 0 of a one-chunk batch and
+    at position 3 of the last chunk of a four-chunk batch (the rest sign-0
+    padding) gives bitwise equal volumes, and de-fusing it from the other
+    position returns the payload to exactly 0."""
+    from noetic_slam_tpu_torch.config import TsdfConfig
+    from noetic_slam_tpu_torch.models import tsdf as tsdf_mod
+    from noetic_slam_tpu_torch.runtime import archive as ar
+
+    cfg = TsdfConfig(voxel_size=0.2, truncation=0.6, max_blocks=4096,
+                     space_carving=False, scan_block_cap=2048,
+                     max_weight=tk.NO_CLAMP)
+    e = _keyframes(rng, n=16)
+    dev = cuda_device
+
+    def fuse(idx, sign, vol=None):
+        vol = tsdf_mod.init_tsdf(cfg, dev) if vol is None else vol
+        return ar._fuse_scan(cfg, vol, *(to_torch(a[idx], dev) for a in e),
+                             np.asarray(sign, np.float32))
+
+    before = tk.block_accumulate.launches
+    a = fuse(np.r_[5:9], [1, 0, 0, 0])
+    perm = np.r_[0:5, 6:16, 5]
+    last = np.zeros(16)
+    last[15] = 1
+    b = fuse(perm, last)
+    assert tk.block_accumulate.launches == before + 2   # padding skipped
+    for name in tsdf_mod.TsdfState._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert bool((a.weight != 0).any())
+    a = fuse(perm, -last, vol=a)
+    assert bool((a.weight == 0).all()) and bool((a.wsum == 0).all())
+
+
+@pytest.mark.cuda
+def test_nn1_kernel_on_verify_loop_operands(rng, cuda_device):
+    """Kernel A as ``verify_loop`` calls it: two keyframe clouds of
+    ``max_ds_points`` rows with sentinel rows (1e6) past the live ones, no
+    ``t_count``, the cap at twice the default correspondence distance; and
+    ``verify_loop`` itself on the card against the CPU run."""
+    from noetic_slam_tpu_torch.config import GicpConfig
+    from noetic_slam_tpu_torch.models import posegraph as pg
+    from noetic_slam_tpu_torch.ops import gicp
+
+    xyz_q, scale, valid, _, _ = _keyframes(rng, n=2, npts=4096)
+    clouds = (xyz_q.astype(np.float32) * scale[:, None, None])
+    clouds[1] += np.asarray([0.15, -0.1, 0.05], np.float32)
+    clouds[~valid] = 1e6
+    src, tgt = clouds
+    cap = 2.0 * GicpConfig().max_corr_dist
+    c2 = np.float32(cap) ** 2
+    qd, td = to_torch(src, cuda_device), to_torch(tgt, cuda_device)
+    i_k, d_k = nk.nn1_fused(qd, td, None, cap)
+    i_k2, d_k2 = nk.nn1_fused(qd, td, None, cap)
+    assert torch.equal(i_k, i_k2) and torch.equal(d_k, d_k2)
+    i_p, d_p = nk.nn1_plain(qd, td, None, cap)
+    i_k, d_k, i_p, d_p = map(to_np, (i_k, d_k, i_p, d_p))
+    # a sentinel query finds nothing in the kernel (the plain version pairs
+    # it with a sentinel target row); GICP rejects invalid sources anyway
+    live = valid[0]
+    assert (i_k[~live] == 0).all() and (d_k[~live] == c2).all()
+    np.testing.assert_array_equal(d_k[live] < c2, d_p[live] < c2)
+    np.testing.assert_allclose(d_k[live], d_p[live], rtol=TOL)
+    tie = live & (i_k != i_p)
+    np.testing.assert_allclose(d_k[tie], d_p[tie], rtol=TOL)
+    assert (d_k[live] < c2).mean() > 0.9
+
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sv = to_torch(valid[0], dev)
+        tv = to_torch(valid[1], dev)
+        sc, _ = gicp.plane_covariances(to_torch(src, dev), sv, 16)
+        tc, _ = gicp.plane_covariances(to_torch(tgt, dev), tv, 16)
+        before = nk.nn1_fused.launches
+        T, ok = pg.verify_loop(to_torch(src, dev), sv, sc, to_torch(tgt, dev),
+                               tc, GicpConfig(), max_corr_dist=cap)
+        out[str(dev)] = (to_np(T), bool(ok), nk.nn1_fused.launches - before)
+    (T_c, ok_c, n_c), (T_g, ok_g, n_g) = out["cpu"], out[str(cuda_device)]
+    assert n_c == 0 and n_g > 0
+    assert ok_c == ok_g
+    np.testing.assert_allclose(T_g[:3, 3], T_c[:3, 3], atol=0.02)

@@ -1,8 +1,10 @@
 """The port never imports JAX nor anything of the JAX package: in a fresh
 interpreter whose import system refuses ``jax`` and ``noetic_slam_tpu``
 (but not ``noetic_slam_tpu_torch``), every module of the port and every
-module that ``chip_smoke.py`` imports import, and two small steps of the
-pipeline run on the CPU with each map backend."""
+module that ``chip_smoke.py`` imports import, two small steps of the
+pipeline run on the CPU with each map backend, and a small SlamSystem
+syncs its keyframes into the graph, the archive and the descriptors,
+attempts a closure, and saves and loads a checkpoint."""
 
 import os
 import subprocess
@@ -67,6 +69,21 @@ SCRIPT = textwrap.dedent("""
         assert int(pipe.tsdf_state.num_blocks) > 0
         assert type(pipe.tsdf_state).__name__ == (
             "OccupancyState" if backend == "occupancy" else "TsdfState")
+    import os, tempfile
+    from noetic_slam_tpu_torch import SlamSystem
+    slam = SlamSystem(cfg.replace(keyframe=cfg.keyframe.__class__(
+        thresh_dist=0.05)), device="cpu", loop_min_gap=1)
+    for i in range(len(sim.imu_stamps)):
+        slam.push_imu(sim.imu_stamps[i], sim.imu_ang[i], sim.imu_acc[i])
+    slam.process_scans(scans)
+    slam.maybe_close_loop()
+    assert slam._synced_total >= 1 and len(slam.archive) >= 1
+    assert slam.desc_store.count == slam._synced_total
+    path = os.path.join(tempfile.mkdtemp(), "ck.npz")
+    slam.save(path)
+    again = SlamSystem(slam.cfg, device="cpu")
+    again.load(path)
+    assert again._synced_total == slam._synced_total
     bad = sorted(m for m in sys.modules if refused(m))
     assert not bad, bad
     print("OK", len(mods), "modules,", len(smoke), "imported by chip_smoke")
