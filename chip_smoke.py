@@ -76,7 +76,19 @@ Phases, each printing its own line:
    (two keyframe clouds with sentinel rows, the cap at twice the
    correspondence distance) and an archive fusion's chunk stream (with
    its exact +1/-1 cancellation), timed hot and cold beside
-   ``cdist``+``amin`` and ``index_add_`` (the ``system_*`` keys).
+   ``cdist``+``amin`` and ``index_add_`` (the ``system_*`` keys);
+12. the command line, ``noetic_slam_tpu_torch.cli.main`` in this process
+   at its default configuration (production capacities), the counters
+   reset before each run and read after it, on inputs written here from
+   seeds: ``slam --pcap`` on an OS1-64 capture in 512x10 mode (64 x 512)
+   with the mesh, ESDF, checkpoint and renders (ATE < 0.15 m); ``slam
+   --bag`` on a bz2 bag of phase 6's scans (ATE < 0.05 m); ``export`` of a
+   40-scan, 32,768-point MulRan directory to a bag, read back, then
+   ``slam --mulran --map-backend occupancy --esdf`` (ATE < 0.5 m). Each
+   prints its scans, wall seconds and scans/s, ATE, closures,
+   ``sync_lost_keyframes`` (must be 0), the launches (A and B, or A and C,
+   must run; no call may reach a plain version) and its output files
+   (each must exist and be non-empty): ``cli_launches`` in the JSON line.
 
 Each kernel phase prints the kernel's time, its plain version's, the time
 of one PyTorch library call computing the same function (used nowhere in
@@ -1502,6 +1514,248 @@ def _accum_line_short(r, ivox) -> str:
             f"{chain} tiles")
 
 
+# ---------------------------------------------------------------------------
+# The command line: ``noetic_slam_tpu_torch.cli`` on recorded inputs
+# (phase 12)
+# ---------------------------------------------------------------------------
+
+CLI_PCAP_ATE = 0.15      # m: tests/test_pcap_e2e.py:58's bound
+CLI_BAG_ATE = 0.05       # m: the synthetic sequence's (PERF.md section 2)
+CLI_MULRAN_ATE = 0.5     # m: tests/test_mulran_e2e.py:104's bound
+CLI_MULRAN_SCANS = 40    # MulRan scans written (0.5 s before the hold ends
+                         # and 3.5 s of motion, at 10 Hz)
+
+
+class _Instances:
+    """Records every ``SlamSystem`` the command line builds (the module's
+    class swapped for a subclass while it is entered)."""
+
+    def __init__(self):
+        from noetic_slam_tpu_torch.runtime import slam as slam_mod
+
+        self.mod, self.made = slam_mod, []
+        made = self.made
+
+        class Recorded(slam_mod.SlamSystem):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        self.cls = Recorded
+
+    def __enter__(self):
+        self.orig = self.mod.SlamSystem
+        self.mod.SlamSystem = self.cls
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.SlamSystem = self.orig
+
+
+def _cli_run(tag: str, argv: list, out: str, files: tuple,
+             need: tuple) -> dict:
+    """``cli.main(argv + ["--out", out])`` in this process, its stdout
+    shown prefixed, the launch counters set to 0 just before and read just
+    after, every plain-version call counted (there must be none). Checks
+    the exit code, that the system ran on the card with 0 lost keyframes,
+    that every kernel in ``need`` launched, and that each of ``files``
+    exists and is not empty."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from noetic_slam_tpu_torch import cli
+
+    counters = _counters()
+    buf = io.StringIO()
+    probes = _Probes()
+    gc.collect()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with _Instances() as inst, probes, contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--out", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    stdout = buf.getvalue()
+    for line in stdout.splitlines():
+        print(f"[12 cli] {tag} | {line}", flush=True)
+    _check(rc == 0, f"cli {tag}: exit {rc}")
+    _check(len(inst.made) == 1, f"cli {tag}: {len(inst.made)} systems")
+    slam = inst.made[0]
+    _check(slam.device.type == "cuda", f"cli {tag}: not on the card")
+    _check(slam.sync_lost_keyframes == 0,
+           f"cli {tag}: {slam.sync_lost_keyframes} keyframes lost")
+    _check(probes.plain_calls == 0,
+           f"cli {tag}: {probes.plain_calls} calls reached a plain version")
+    for name in need:
+        _check(launches[name] > 0, f"cli {tag}: {name} never launched")
+    sizes = {}
+    for name in files:
+        path = os.path.join(out, name)
+        _check(os.path.isfile(path) and os.path.getsize(path) > 0,
+               f"cli {tag}: {name} missing or empty")
+        sizes[name] = os.path.getsize(path)
+    traj = np.loadtxt(os.path.join(out, "trajectory.tum"), ndmin=2)
+    _check(bool(np.isfinite(traj).all()), f"cli {tag}: non-finite pose")
+    return {"traj": traj, "wall": wall, "launches": launches,
+            "closures": slam.loop_closures, "lost": slam.sync_lost_keyframes,
+            "stdout": stdout, "sizes": sizes, "host_syncs": slam.host_syncs}
+
+
+def _cli_line(tag: str, what: str, r: dict, ate: float, extra: str = ""):
+    n = len(r["traj"])
+    files = ", ".join(f"{k} {v}" for k, v in r["sizes"].items())
+    print(f"[12 cli] {tag}: {what}; {n} scans in {r['wall']:.2f} s wall "
+          f"(the whole command: setup, ingest, closures, map products, "
+          f"files) = {n / r['wall']:.2f} scans/s; ATE {ate:.4f} m; closures "
+          f"{r['closures']}; sync_lost_keyframes {r['lost']}; host syncs "
+          f"{r['host_syncs']} ({r['host_syncs'] / max(n, 1):.2f}/scan); "
+          f"launches {r['launches']}{extra}; files (bytes): {files}",
+          flush=True)
+
+
+def _esdf_observed(path: str) -> int:
+    d = np.load(path)
+    _check(bool(np.isfinite(d["esdf"]).all()), f"{path}: non-finite ESDF")
+    n = int(d["observed"].sum())
+    _check(n > 0, f"{path}: no observed voxel")
+    return n
+
+
+def phase_cli(sim, scans) -> dict:
+    """Phase 12: ``noetic_slam_tpu_torch.cli.main`` in this process at the
+    command line's default configuration (production capacities), on
+    inputs written here from seeds: (a) ``slam --pcap`` on an OS1-64
+    capture in 512x10 mode (64 x 512, 32,768 points a frame) with TSDF,
+    loop closure, mesh, ESDF, checkpoint and renders; (b) ``slam --bag`` on
+    a bz2 bag of phase 6's 32,768-point sequence (``sim`` and the
+    ``scans`` drawn from it) with TSDF; (c) ``export``
+    of a 40-scan, 32,768-point MulRan directory to a bag, read back, then
+    ``slam --mulran --map-backend occupancy --esdf``. Returns the launches
+    of each kernel per run."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from noetic_slam_tpu_torch import cli
+    from noetic_slam_tpu_torch.io import rosbag
+    from noetic_slam_tpu_torch.io.mulran import MulranDataset
+    from noetic_slam_tpu_torch.utils import fixtures, synthetic
+    from noetic_slam_tpu_torch.utils.geometry import quat_to_mat_np
+
+    A, B, C = "nn1_fused", "block_accumulate", "logodds_accumulate"
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        # (a) an Ouster capture through the packet path
+        cap = os.path.join(root, "capture")
+        t0 = time.perf_counter()
+        meta = fixtures.write_pcap_fixture(cap, h=64, w=512)
+        gen_s = time.perf_counter() - t0
+        o = os.path.join(root, "out_pcap")
+        r = _cli_run("pcap", ["slam", "--pcap", meta["pcap"], "--metadata",
+                              meta["metadata"], "--mesh", "--esdf",
+                              "--checkpoint", "--viz"], o,
+                     ("trajectory.tum", "dlio_map.pcd", "tsdf_surface.ply",
+                      "tsdf_mesh.ply", "esdf.npz", "esdf_slice.png",
+                      "state.nst.npz", "trajectory.png", "map_views.png",
+                      "map_viewer.html"), (A, B))
+        gt = np.loadtxt(meta["gt"])
+        ate = synthetic.ate_rmse(r["traj"][:, 0] - fixtures.PCAP_BASE_NS
+                                 * 1e-9, r["traj"][:, 1:4], gt[:, 0],
+                                 gt[:, 1:4])
+        _check(ate < CLI_PCAP_ATE, f"cli pcap: ATE {ate:.4f} m")
+        _check(len(r["traj"]) >= 35, f"cli pcap: {len(r['traj'])} scans")
+        _cli_line("pcap", f"64 x 512 capture ({meta['n_frames']} frames, "
+                  f"{meta['n_packets']} packets, {meta['bytes']} bytes, "
+                  f"written in {gen_s:.2f} s)", r, ate,
+                  f"; ESDF {_esdf_observed(os.path.join(o, 'esdf.npz'))} "
+                  f"observed voxels")
+        out["pcap"] = r["launches"]
+
+        # (b) a bz2 bag of phase 6's synthetic 32,768-point sequence
+        t0 = time.perf_counter()
+        bag = fixtures.write_sim_bag(os.path.join(root, "sim.bag"), sim,
+                                     compression="bz2", scans=scans)
+        gen_s = time.perf_counter() - t0
+        o = os.path.join(root, "out_bag")
+        r = _cli_run("bag", ["slam", "--bag", bag["bag"]], o,
+                     ("trajectory.tum", "dlio_map.pcd", "tsdf_surface.ply"),
+                     (A, B))
+        ate = synthetic.ate_rmse(r["traj"][:, 0] - fixtures.BAG_EPOCH,
+                                 r["traj"][:, 1:4], sim.gt_stamps,
+                                 sim.gt_pos)
+        _check(ate < CLI_BAG_ATE, f"cli bag: ATE {ate:.4f} m")
+        _check(len(r["traj"]) == bag["n_scans"],
+               f"cli bag: {len(r['traj'])} of {bag['n_scans']} scans")
+        _cli_line("bag", f"bz2 bag of {bag['n_scans']} scans x 32768 points "
+                  f"and {bag['n_imu']} IMU samples ({bag['bytes']} bytes, "
+                  f"written in {gen_s:.2f} s)", r, ate)
+        out["bag"] = r["launches"]
+
+        # (c) a MulRan directory: export to a bag and read it back, then
+        # the occupancy map
+        d = os.path.join(root, "mulran")
+        t0 = time.perf_counter()
+        fx = fixtures.write_mulran_fixture(d, duration=3.5,
+                                           n_points=32768, seed=42)
+        gen_s = time.perf_counter() - t0
+        _check(fx["n_scans"] == CLI_MULRAN_SCANS,
+               f"cli mulran: {fx['n_scans']} scans written")
+        ebag = os.path.join(root, "export.bag")
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["export", "--mulran", d, "--bag", ebag,
+                           "--compression", "bz2"])
+        _check(rc == 0, f"cli export: exit {rc}")
+        stats = json.loads(buf.getvalue())
+        ds = MulranDataset.load(d)
+        gts = [rosbag.parse_odometry(m) for _, _, _, m in
+               rosbag.BagReader(ebag).messages(["/gt"])]
+        n_radar = sum(1 for _ in rosbag.BagReader(ebag).messages(
+            ["/radar/polar"]))
+        _check(stats == {"gt": len(ds.gt_stamps), "radar": n_radar}
+               and len(gts) == len(ds.gt_stamps) and n_radar > 0,
+               f"cli export: {stats}, {len(gts)} poses and {n_radar} "
+               f"images read back")
+        p_err = max(float(np.abs(g["p"] - pose[:, 3]).max())
+                    for g, pose in zip(gts, ds.gt_poses))
+        r_err = max(float(np.abs(quat_to_mat_np(g["q"]) - pose[:, :3]).max())
+                    for g, pose in zip(gts, ds.gt_poses))
+        _check(p_err == 0.0 and r_err < 1e-5,
+               f"cli export: read back |dp| {p_err}, |dR| {r_err}")
+        export_s = time.perf_counter() - t0
+        o = os.path.join(root, "out_mulran")
+        r = _cli_run("mulran", ["slam", "--mulran", d, "--map-backend",
+                                "occupancy", "--esdf"], o,
+                     ("trajectory.tum", "dlio_map.pcd", "occupied.ply",
+                      "esdf.npz", "esdf_slice.png"), (A, C))
+        _check(r["launches"][B] == 0, "cli mulran: kernel B launched on "
+               "the occupancy map")
+        line = [ln for ln in r["stdout"].splitlines()
+                if ln.startswith("ATE RMSE vs ground truth:")]
+        _check(len(line) == 1, "cli mulran: no ATE line")
+        ate = float(line[0].split(":")[1].split("m")[0])
+        _check(ate < CLI_MULRAN_ATE, f"cli mulran: ATE {ate:.4f} m")
+        _cli_line("mulran", f"MulRan directory, {fx['n_scans']} scans x "
+                  f"32768 points (written in {gen_s:.2f} s; export to a bz2 "
+                  f"bag and read back in {export_s:.2f} s: {stats}, poses "
+                  f"exact, rotations within {r_err:.1e}), occupancy map", r,
+                  ate, f"; ESDF "
+                  f"{_esdf_observed(os.path.join(o, 'esdf.npz'))} observed "
+                  f"voxels")
+        out["mulran_occupancy"] = r["launches"]
+    print(f"[12 cli] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scans", type=int, default=60,
@@ -1547,11 +1801,14 @@ def main(argv=None) -> int:
     closure_launches = phase_closure(probes)
     _check(probes.verify_a > 0, "no verify_loop call launched kernel A")
     extra = phase_system_kernels(probes)
+    cli_launches = phase_cli(sim, scans)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         _check(k["launches"] > 0, f"{k['name']} never launched on its path")
         k["system_launches"] = system_launches[k["name"]]
         k["closure_launches"] = closure_launches[k["name"]]
+        k["cli_launches"] = {run: n[k["name"]]
+                             for run, n in cli_launches.items()}
         k.update(extra.get(k["name"], {}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_cold",
@@ -1559,7 +1816,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {**{key: k[key] for key in keys},
          **{key: v for key, v in k.items()
-            if key.startswith(("main_shape", "system", "closure"))}}
+            if key.startswith(("main_shape", "system", "closure", "cli"))}}
         for k in kernels]}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Map/trajectory export: PLY, PCD, TUM trajectory.
 
-The port's own copy of the writers of ``noetic_slam_tpu/io/export.py``
-(numpy only); ``tests/test_torch_copies.py`` holds each to identical
-bytes. ``export_mulran_bag`` waits for the port of the rosbag writer.
+The port's own copy of ``noetic_slam_tpu/io/export.py`` (numpy only);
+``tests/test_torch_copies.py`` holds each writer to identical bytes and
+``tests/test_torch_ingest.py`` holds ``export_mulran_bag``'s bag to the
+original's.
 
 Covers the reference's map outputs:
 - dliomapping's rolling PLY shards (src/dliomapping/dliomapping.cpp:64-86)
@@ -114,3 +115,36 @@ def write_tum_trajectory(path: str, traj: np.ndarray) -> int:
                            traj[:, 5:8], traj[:, 4]])
     np.savetxt(path, out, fmt="%.9f")
     return len(out)
+
+
+def export_mulran_bag(dataset, path: str, radar: bool = True,
+                      gt_topic: str = "/gt",
+                      radar_topic: str = "/radar/polar",
+                      compression: str = "none") -> dict:
+    """SaveRosbag parity (reference file_player ROSThread.cpp:704-784):
+    write the sequence's ground truth (``global_pose.csv`` 3x4 row-major
+    poses -> nav_msgs/Odometry on ``/gt``) and, when present, the polar
+    radar images (sensor_msgs/Image mono8/mono16) into a v2.0 rosbag.
+    Quaternions come from the host helper ``mat_to_quat_np``.
+
+    Returns {"gt": n, "radar": n}.
+    """
+    from noetic_slam_tpu_torch.io.rosbag import BagWriter
+    from noetic_slam_tpu_torch.utils.geometry import mat_to_quat_np
+
+    w = BagWriter(path, compression=compression)
+    n_gt = n_radar = 0
+    if dataset.gt_stamps is not None:
+        for t, pose in zip(dataset.gt_stamps, dataset.gt_poses):
+            w.write_odometry(gt_topic, float(t), pose[:, 3],
+                             mat_to_quat_np(pose[:, :3]))
+            n_gt += 1
+    if radar and len(dataset.radar_stamps):
+        for i, t in enumerate(dataset.radar_stamps):
+            img = dataset.read_radar(i)
+            if img.ndim == 3:                  # RGB(A) png: take channel 0
+                img = img[..., 0]
+            w.write_image(radar_topic, float(t), img)
+            n_radar += 1
+    w.close()
+    return {"gt": n_gt, "radar": n_radar}

@@ -38,23 +38,29 @@ class ReplayClock:
             time.sleep(delay)
 
 
-def replay_dataset(dataset, pipeline, rate: float = 0.0,
-                   max_scans: Optional[int] = None,
+def replay_dataset(dataset, pipeline, tsdf_integrator=None,
+                   rate: float = 0.0, max_scans: Optional[int] = None,
                    on_scan: Optional[Callable] = None,
                    skip_stop_region: Optional[tuple] = None,
                    batch: int = 1,
-                   on_batch: Optional[Callable] = None) -> dict:
+                   on_batch: Optional[Callable] = None,
+                   on_gps: Optional[Callable] = None,
+                   on_radar: Optional[Callable] = None) -> dict:
     """Drive a MulranDataset (or anything with its interface: ``events()``,
     ``read_scan(i)``, ``imu_stamps``/``imu_gyro``/``imu_accel``) through
-    the port's ``OdometryPipeline``.
+    the port's ``OdometryPipeline`` (or ``SlamSystem``).
 
-    ``on_scan(idx, out)`` receives each StepOutput; ``skip_stop_region``
-    (t0, t1) drops events inside an absolute stamp window; ``batch`` > 1
-    hands K scans at a time to ``process_scans`` (requires rate == 0 and
-    no ``on_scan``), with ``on_batch(n_scans)`` after each.
+    ``tsdf_integrator(out)`` and ``on_scan(idx, out)`` receive each
+    StepOutput; ``on_gps(stamp, row)`` and ``on_radar(stamp, idx)`` each
+    dataset's GPS and radar events, in stamp order with the rest;
+    ``skip_stop_region`` (t0, t1) drops events inside an absolute stamp
+    window; ``batch`` > 1 hands K scans at a time to ``process_scans``
+    (requires rate == 0 and no per-scan callbacks), with
+    ``on_batch(n_scans)`` after each.
     Returns {"n_scans", "n_imu", "wall_time"}.
     """
-    if batch > 1 and (rate > 0 or on_scan is not None):
+    if batch > 1 and (rate > 0 or on_scan is not None
+                      or tsdf_integrator is not None):
         raise ValueError("batch>1 requires rate=0 and no per-scan callbacks")
     clock = ReplayClock(rate=rate)
     n_scans = n_imu = 0
@@ -83,16 +89,31 @@ def replay_dataset(dataset, pipeline, rate: float = 0.0,
                 flush_ready()
             return
         out = pipeline.process_scan(stamp, raw[:, :3], point_times=None)
+        if tsdf_integrator is not None:
+            tsdf_integrator(out)
         if on_scan is not None:
             on_scan(idx, out)
         n_scans += 1
 
-    for stamp, kind, idx in dataset.events():
+    if on_gps is None and on_radar is None:
+        events = dataset.events()            # duck-typed datasets: no kinds
+    else:
+        kinds = ["imu", "scan"]
+        if on_gps is not None:
+            kinds.append("gps")
+        if on_radar is not None:
+            kinds.append("radar")
+        events = dataset.events(tuple(kinds))
+    for stamp, kind, idx in events:
         if (skip_stop_region
                 and skip_stop_region[0] <= stamp <= skip_stop_region[1]):
             continue
         clock.wait_until(stamp)
-        if kind == "imu":
+        if kind == "gps":
+            on_gps(stamp, dataset.gps[idx])
+        elif kind == "radar":
+            on_radar(stamp, idx)
+        elif kind == "imu":
             pipeline.push_imu(dataset.imu_stamps[idx], dataset.imu_gyro[idx],
                               dataset.imu_accel[idx])
             n_imu += 1

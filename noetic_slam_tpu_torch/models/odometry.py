@@ -11,9 +11,10 @@ runs the same computation eagerly on fixed-shape tensors:
   the host from one scalar read each, and GICP's outer LM loop reads its
   continue flag once per iteration. Every such read is counted in the
   ``HostSyncs`` passed to ``make_odometry_step``;
-- the grid NN engine (``nn_engine="grid"``) and the kNN covariances
-  (``cov_engine="knn"``) are not ported yet, so ``OdomState`` carries no
-  grid index.
+- source covariances come from ``cov_engine``: the radius-weighted
+  moments (``"radius"``) or each point's k nearest neighbours
+  (``"knn"``). The grid NN engine (``nn_engine="grid"``) is not ported
+  yet, so ``OdomState`` carries no grid index.
 
 Times in ``StepInput``/state are float32 seconds relative to the current
 scan's header stamp, as in the JAX module.
@@ -511,10 +512,10 @@ def gather_submap(cfg: DlioConfig, state: OdomState, mask: Tensor):
 def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None):
     """The odometry step ``step(state, inp) -> (state, out)`` for ``cfg``.
     Host reads that decide control flow are counted in ``syncs``."""
-    if cfg.gicp.nn_engine != "brute" or cfg.gicp.cov_engine != "radius":
+    if cfg.gicp.nn_engine != "brute":
         raise NotImplementedError(
-            "the torch port runs nn_engine='brute' with cov_engine='radius' "
-            "only (ROADMAP: grid NN engine and kNN covariances)")
+            "the torch port runs nn_engine='brute' only (ROADMAP Queue 1 "
+            "item 7: the grid NN engine)")
     syncs = HostSyncs() if syncs is None else syncs
     cap = cfg.capacity
     R_ext = np.asarray(cfg.extrinsics.baselink2lidar_R,
@@ -589,8 +590,12 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None):
 
         # ---- source covariances ---------------------------------------------
         with record_function("odometry.covariances"):
-            src_cov, src_density = gicp_ops.radius_covariances(
-                ds_xyz, ds_valid, cfg.gicp.cov_radius)
+            if cfg.gicp.cov_engine == "radius":
+                src_cov, src_density = gicp_ops.radius_covariances(
+                    ds_xyz, ds_valid, cfg.gicp.cov_radius)
+            else:
+                src_cov, src_density = gicp_ops.plane_covariances(
+                    ds_xyz, ds_valid, cfg.gicp.k_correspondences)
 
         # ---- observer IMU-rate propagation over the inter-scan interval ------
         with record_function("odometry.propagate"):

@@ -13,9 +13,9 @@ The two ``lax.while_loop``s of ``gicp_align`` become:
   once per iteration (each iteration costs an NN search anyway). Every
   such read is counted in ``syncs`` (see ``HostSyncs``).
 
-``plane_covariances`` is ported for the brute-force kNN only (the keyframe
-archive's closure path); its grid-NN branch (``use_grid=True``) waits with
-``ops/gridnn.py``, and ``cov_engine="knn"`` is not wired into the step.
+``plane_covariances`` is ported for the brute-force kNN only (the step's
+``cov_engine="knn"`` and the keyframe archive's closure path); its grid-NN
+branch (``use_grid=True``) waits with ``ops/gridnn.py``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The port never imports JAX nor anything of the JAX package: in a fresh
 interpreter whose import system refuses ``jax`` and ``noetic_slam_tpu``
 (but not ``noetic_slam_tpu_torch``), every module of the port and every
-module that ``chip_smoke.py`` imports import, two small steps of the
+module that ``chip_smoke.py`` imports import (the command line and the
+ingest layer among them; ``cli info`` runs), two small steps of the
 pipeline run on the CPU with each map backend, and a small SlamSystem
 syncs its keyframes into the graph, the archive and the descriptors,
 attempts a closure, and saves and loads a checkpoint."""
@@ -31,6 +32,11 @@ SCRIPT = textwrap.dedent("""
     mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in mods:
         importlib.import_module(name)
+    # the command line and the ingest layer are among them
+    ingest = {"cli", "io.rosbag", "io.ouster", "io.pcap", "io.viz",
+              "io.export", "io.replay", "runtime.native", "runtime.metrics",
+              "utils.lz4frame", "utils.fixtures"}
+    assert {pkg.__name__ + "." + m for m in ingest} <= set(mods), mods
     # chip_smoke.py imports inside its phases: import every module it names
     tree = ast.parse(open("chip_smoke.py").read())
     smoke = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
@@ -84,6 +90,12 @@ SCRIPT = textwrap.dedent("""
     again = SlamSystem(slam.cfg, device="cpu")
     again.load(path)
     assert again._synced_total == slam._synced_total
+    import contextlib, io
+    from noetic_slam_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["info", "--device", "cpu"]) == 0
+    assert buf.getvalue().startswith("backend: cpu")
     bad = sorted(m for m in sys.modules if refused(m))
     assert not bad, bad
     print("OK", len(mods), "modules,", len(smoke), "imported by chip_smoke")

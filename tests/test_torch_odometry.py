@@ -3,6 +3,8 @@ package: the keyframe and submap functions on a shared state, and one
 ``make_slam_step`` step of both implementations from the same mid-run
 state (JAX steps to it, ``convert`` carries it across)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,7 +125,26 @@ def test_registration_step_matches_jax(replay, k):
     """One fused step (registration, observer, keyframing, TSDF) from the
     same mid-run JAX state."""
     cfg, steps = replay
-    (js, jm, jout), (ts, tm, tout), syncs = _both_steps(cfg, *steps[k])
+    _check_registration_step(cfg, steps[k])
+
+
+def test_registration_step_knn_covariances_matches_jax(replay):
+    """The same step with ``cov_engine="knn"``: source covariances from
+    each point's k nearest neighbours (``plane_covariances``) instead of
+    the radius-weighted moments."""
+    cfg, steps = replay
+    gicp = dataclasses.replace(cfg.gicp, cov_engine="knn")
+    _check_registration_step(cfg.replace(gicp=gicp), steps[3])
+
+
+def test_grid_nn_engine_still_raises():
+    gicp = dataclasses.replace(small_cfg().gicp, nn_engine="grid")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        to.make_odometry_step(small_cfg().replace(gicp=gicp))
+
+
+def _check_registration_step(cfg, step):
+    (js, jm, jout), (ts, tm, tout), syncs = _both_steps(cfg, *step)
     assert bool(tout.processed) and bool(jout.processed)
     # host reads: one for skip/bootstrap, one per GICP outer iteration,
     # one for the submap re-gather
