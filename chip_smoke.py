@@ -88,7 +88,29 @@ Phases, each printing its own line:
    prints its scans, wall seconds and scans/s, ATE, closures,
    ``sync_lost_keyframes`` (must be 0), the launches (A and B, or A and C,
    must run; no call may reach a plain version) and its output files
-   (each must exist and be non-empty): ``cli_launches`` in the JSON line.
+   (each must exist and be non-empty): ``cli_launches`` in the JSON line;
+13. the live path: phase 12's capture replayed by a sender thread over
+   loopback UDP, paced by its capture stamps, into what ``cli live``
+   builds (``SlamSystem(pipelined=True)`` with TSDF at the default
+   configuration, fed by ``runtime.live.LiveDriver`` in sensor-stamp
+   mode): (a0) at 10 Hz under the JAX driver's rule (a frame the IMU does
+   not cover yet is dropped), (a) at 10 Hz under the port's (it is held
+   until the next IMU drain; ATE < 0.15 m, A and B must launch), (b) at
+   20 Hz. Each prints frames sent, scans processed, frames dropped and
+   held, ``source.lidar_dropped``, the processed rate, the lag from the
+   last packet sent to the last scan done, ATE, host syncs per scan and
+   the launches. (c) ``cli player --rate 1`` over phase 12's MulRan
+   directory: events, wall seconds, ATE, no thread exception;
+   ``live_launches`` in the JSON line;
+14. the multi-sequence runtime: scripts/bench_batch.py's B = 1/2/4/8
+   ladder at its full width (8,192 points, 4,096 kept, 64 keyframes, 16
+   submap keyframes; one ``make_sim(seed=77)`` shared by every sequence,
+   cut to ``BATCH_SECONDS``) through ``MultiSequencePipeline`` on the
+   card: total and per-sequence scans/s, host syncs per round, A's
+   launches, peak memory, each sequence's ATE (each < 0.08 m) and whether
+   the B trajectories are bitwise equal; then ``cli batch --synthetic 2
+   --mulran <phase 12's directory> --checkpoint`` and a ``--resume`` from
+   its checkpoint, both exiting 0; ``batch_launches`` in the JSON line.
 
 Each kernel phase prints the kernel's time, its plain version's, the time
 of one PyTorch library call computing the same function (used nowhere in
@@ -107,6 +129,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1527,16 +1550,18 @@ CLI_MULRAN_SCANS = 40    # MulRan scans written (0.5 s before the hold ends
 
 
 class _Instances:
-    """Records every ``SlamSystem`` the command line builds (the module's
-    class swapped for a subclass while it is entered)."""
+    """Records every instance of ``mod.<name>`` (default: ``SlamSystem``)
+    that the command line builds (the module's class swapped for a
+    subclass while it is entered)."""
 
-    def __init__(self):
-        from noetic_slam_tpu_torch.runtime import slam as slam_mod
+    def __init__(self, mod=None, name: str = "SlamSystem"):
+        if mod is None:
+            from noetic_slam_tpu_torch.runtime import slam as mod
 
-        self.mod, self.made = slam_mod, []
+        self.mod, self.name, self.made = mod, name, []
         made = self.made
 
-        class Recorded(slam_mod.SlamSystem):
+        class Recorded(getattr(mod, name)):
             def __init__(self, *a, **kw):
                 super().__init__(*a, **kw)
                 made.append(self)
@@ -1544,22 +1569,47 @@ class _Instances:
         self.cls = Recorded
 
     def __enter__(self):
-        self.orig = self.mod.SlamSystem
-        self.mod.SlamSystem = self.cls
+        self.orig = getattr(self.mod, self.name)
+        setattr(self.mod, self.name, self.cls)
         return self
 
     def __exit__(self, *exc):
-        self.mod.SlamSystem = self.orig
+        setattr(self.mod, self.name, self.orig)
+
+
+class _ThreadErrors:
+    """Counts the exceptions that escape any thread while entered."""
+
+    def __enter__(self):
+        import threading
+
+        self.n, self.orig = 0, threading.excepthook
+
+        def hook(args):
+            self.n += 1
+            self.orig(args)
+
+        threading.excepthook = hook
+        return self
+
+    def __exit__(self, *exc):
+        import threading
+
+        threading.excepthook = self.orig
 
 
 def _cli_run(tag: str, argv: list, out: str, files: tuple,
-             need: tuple) -> dict:
+             need: tuple, prefix: str = "[12 cli]",
+             traj_file: str | None = "trajectory.tum",
+             instances: _Instances | None = None) -> dict:
     """``cli.main(argv + ["--out", out])`` in this process, its stdout
     shown prefixed, the launch counters set to 0 just before and read just
     after, every plain-version call counted (there must be none). Checks
-    the exit code, that the system ran on the card with 0 lost keyframes,
-    that every kernel in ``need`` launched, and that each of ``files``
-    exists and is not empty."""
+    the exit code, that it built one system (``instances``, default the
+    ``SlamSystem``s) on the card, with 0 lost keyframes for a
+    ``SlamSystem``, that no thread died of an exception, that every
+    kernel in ``need`` launched, and that each of ``files`` exists and is
+    not empty."""
     import contextlib
     import io
     import os
@@ -1571,25 +1621,30 @@ def _cli_run(tag: str, argv: list, out: str, files: tuple,
     counters = _counters()
     buf = io.StringIO()
     probes = _Probes()
+    inst = instances or _Instances()
     gc.collect()
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    with _Instances() as inst, probes, contextlib.redirect_stdout(buf):
+    with inst, probes, _ThreadErrors() as errs, \
+            contextlib.redirect_stdout(buf):
         rc = cli.main(argv + ["--out", out])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     stdout = buf.getvalue()
     for line in stdout.splitlines():
-        print(f"[12 cli] {tag} | {line}", flush=True)
+        print(f"{prefix} {tag} | {line}", flush=True)
     _check(rc == 0, f"cli {tag}: exit {rc}")
+    _check(errs.n == 0, f"cli {tag}: {errs.n} thread exceptions")
     _check(len(inst.made) == 1, f"cli {tag}: {len(inst.made)} systems")
-    slam = inst.made[0]
-    _check(slam.device.type == "cuda", f"cli {tag}: not on the card")
-    _check(slam.sync_lost_keyframes == 0,
-           f"cli {tag}: {slam.sync_lost_keyframes} keyframes lost")
+    made = inst.made[0]
+    on_card = (made.device if hasattr(made, "device")
+               else made.seq_device[0]).type == "cuda"
+    _check(on_card, f"cli {tag}: not on the card")
+    lost = getattr(made, "sync_lost_keyframes", 0)
+    _check(lost == 0, f"cli {tag}: {lost} keyframes lost")
     _check(probes.plain_calls == 0,
            f"cli {tag}: {probes.plain_calls} calls reached a plain version")
     for name in need:
@@ -1600,11 +1655,14 @@ def _cli_run(tag: str, argv: list, out: str, files: tuple,
         _check(os.path.isfile(path) and os.path.getsize(path) > 0,
                f"cli {tag}: {name} missing or empty")
         sizes[name] = os.path.getsize(path)
-    traj = np.loadtxt(os.path.join(out, "trajectory.tum"), ndmin=2)
-    _check(bool(np.isfinite(traj).all()), f"cli {tag}: non-finite pose")
+    traj = None
+    if traj_file is not None:
+        traj = np.loadtxt(os.path.join(out, traj_file), ndmin=2)
+        _check(bool(np.isfinite(traj).all()), f"cli {tag}: non-finite pose")
     return {"traj": traj, "wall": wall, "launches": launches,
-            "closures": slam.loop_closures, "lost": slam.sync_lost_keyframes,
-            "stdout": stdout, "sizes": sizes, "host_syncs": slam.host_syncs}
+            "closures": getattr(made, "loop_closures", 0), "lost": lost,
+            "stdout": stdout, "sizes": sizes, "host_syncs": made.host_syncs,
+            "made": made}
 
 
 def _cli_line(tag: str, what: str, r: dict, ate: float, extra: str = ""):
@@ -1627,7 +1685,7 @@ def _esdf_observed(path: str) -> int:
     return n
 
 
-def phase_cli(sim, scans) -> dict:
+def phase_cli(sim, scans, root: str) -> dict:
     """Phase 12: ``noetic_slam_tpu_torch.cli.main`` in this process at the
     command line's default configuration (production capacities), on
     inputs written here from seeds: (a) ``slam --pcap`` on an OS1-64
@@ -1636,12 +1694,12 @@ def phase_cli(sim, scans) -> dict:
     a bz2 bag of phase 6's 32,768-point sequence (``sim`` and the
     ``scans`` drawn from it) with TSDF; (c) ``export``
     of a 40-scan, 32,768-point MulRan directory to a bag, read back, then
-    ``slam --mulran --map-backend occupancy --esdf``. Returns the launches
-    of each kernel per run."""
+    ``slam --mulran --map-backend occupancy --esdf``. The inputs stay in
+    ``root`` for phases 13 and 14. Returns the launches of each kernel per
+    run, and the capture's paths."""
     import contextlib
     import io
     import os
-    import tempfile
 
     from noetic_slam_tpu_torch import cli
     from noetic_slam_tpu_torch.io import rosbag
@@ -1652,107 +1710,456 @@ def phase_cli(sim, scans) -> dict:
     A, B, C = "nn1_fused", "block_accumulate", "logodds_accumulate"
     t_phase = time.perf_counter()
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
-        # (a) an Ouster capture through the packet path
-        cap = os.path.join(root, "capture")
-        t0 = time.perf_counter()
-        meta = fixtures.write_pcap_fixture(cap, h=64, w=512)
-        gen_s = time.perf_counter() - t0
-        o = os.path.join(root, "out_pcap")
-        r = _cli_run("pcap", ["slam", "--pcap", meta["pcap"], "--metadata",
-                              meta["metadata"], "--mesh", "--esdf",
-                              "--checkpoint", "--viz"], o,
-                     ("trajectory.tum", "dlio_map.pcd", "tsdf_surface.ply",
-                      "tsdf_mesh.ply", "esdf.npz", "esdf_slice.png",
-                      "state.nst.npz", "trajectory.png", "map_views.png",
-                      "map_viewer.html"), (A, B))
-        gt = np.loadtxt(meta["gt"])
-        ate = synthetic.ate_rmse(r["traj"][:, 0] - fixtures.PCAP_BASE_NS
-                                 * 1e-9, r["traj"][:, 1:4], gt[:, 0],
-                                 gt[:, 1:4])
-        _check(ate < CLI_PCAP_ATE, f"cli pcap: ATE {ate:.4f} m")
-        _check(len(r["traj"]) >= 35, f"cli pcap: {len(r['traj'])} scans")
-        _cli_line("pcap", f"64 x 512 capture ({meta['n_frames']} frames, "
-                  f"{meta['n_packets']} packets, {meta['bytes']} bytes, "
-                  f"written in {gen_s:.2f} s)", r, ate,
-                  f"; ESDF {_esdf_observed(os.path.join(o, 'esdf.npz'))} "
-                  f"observed voxels")
-        out["pcap"] = r["launches"]
+    # (a) an Ouster capture through the packet path
+    cap = os.path.join(root, "capture")
+    t0 = time.perf_counter()
+    meta = fixtures.write_pcap_fixture(cap, h=64, w=512)
+    gen_s = time.perf_counter() - t0
+    o = os.path.join(root, "out_pcap")
+    r = _cli_run("pcap", ["slam", "--pcap", meta["pcap"], "--metadata",
+                          meta["metadata"], "--mesh", "--esdf",
+                          "--checkpoint", "--viz"], o,
+                 ("trajectory.tum", "dlio_map.pcd", "tsdf_surface.ply",
+                  "tsdf_mesh.ply", "esdf.npz", "esdf_slice.png",
+                  "state.nst.npz", "trajectory.png", "map_views.png",
+                  "map_viewer.html"), (A, B))
+    gt = np.loadtxt(meta["gt"])
+    ate = synthetic.ate_rmse(r["traj"][:, 0] - fixtures.PCAP_BASE_NS
+                             * 1e-9, r["traj"][:, 1:4], gt[:, 0],
+                             gt[:, 1:4])
+    _check(ate < CLI_PCAP_ATE, f"cli pcap: ATE {ate:.4f} m")
+    _check(len(r["traj"]) >= 35, f"cli pcap: {len(r['traj'])} scans")
+    _cli_line("pcap", f"64 x 512 capture ({meta['n_frames']} frames, "
+              f"{meta['n_packets']} packets, {meta['bytes']} bytes, "
+              f"written in {gen_s:.2f} s)", r, ate,
+              f"; ESDF {_esdf_observed(os.path.join(o, 'esdf.npz'))} "
+              f"observed voxels")
+    out["pcap"] = r["launches"]
+    capture = meta
 
-        # (b) a bz2 bag of phase 6's synthetic 32,768-point sequence
-        t0 = time.perf_counter()
-        bag = fixtures.write_sim_bag(os.path.join(root, "sim.bag"), sim,
-                                     compression="bz2", scans=scans)
-        gen_s = time.perf_counter() - t0
-        o = os.path.join(root, "out_bag")
-        r = _cli_run("bag", ["slam", "--bag", bag["bag"]], o,
-                     ("trajectory.tum", "dlio_map.pcd", "tsdf_surface.ply"),
-                     (A, B))
-        ate = synthetic.ate_rmse(r["traj"][:, 0] - fixtures.BAG_EPOCH,
-                                 r["traj"][:, 1:4], sim.gt_stamps,
-                                 sim.gt_pos)
-        _check(ate < CLI_BAG_ATE, f"cli bag: ATE {ate:.4f} m")
-        _check(len(r["traj"]) == bag["n_scans"],
-               f"cli bag: {len(r['traj'])} of {bag['n_scans']} scans")
-        _cli_line("bag", f"bz2 bag of {bag['n_scans']} scans x 32768 points "
-                  f"and {bag['n_imu']} IMU samples ({bag['bytes']} bytes, "
-                  f"written in {gen_s:.2f} s)", r, ate)
-        out["bag"] = r["launches"]
+    # (b) a bz2 bag of phase 6's synthetic 32,768-point sequence
+    t0 = time.perf_counter()
+    bag = fixtures.write_sim_bag(os.path.join(root, "sim.bag"), sim,
+                                 compression="bz2", scans=scans)
+    gen_s = time.perf_counter() - t0
+    o = os.path.join(root, "out_bag")
+    r = _cli_run("bag", ["slam", "--bag", bag["bag"]], o,
+                 ("trajectory.tum", "dlio_map.pcd", "tsdf_surface.ply"),
+                 (A, B))
+    ate = synthetic.ate_rmse(r["traj"][:, 0] - fixtures.BAG_EPOCH,
+                             r["traj"][:, 1:4], sim.gt_stamps,
+                             sim.gt_pos)
+    _check(ate < CLI_BAG_ATE, f"cli bag: ATE {ate:.4f} m")
+    _check(len(r["traj"]) == bag["n_scans"],
+           f"cli bag: {len(r['traj'])} of {bag['n_scans']} scans")
+    _cli_line("bag", f"bz2 bag of {bag['n_scans']} scans x 32768 points "
+              f"and {bag['n_imu']} IMU samples ({bag['bytes']} bytes, "
+              f"written in {gen_s:.2f} s)", r, ate)
+    out["bag"] = r["launches"]
 
-        # (c) a MulRan directory: export to a bag and read it back, then
-        # the occupancy map
-        d = os.path.join(root, "mulran")
-        t0 = time.perf_counter()
-        fx = fixtures.write_mulran_fixture(d, duration=3.5,
-                                           n_points=32768, seed=42)
-        gen_s = time.perf_counter() - t0
-        _check(fx["n_scans"] == CLI_MULRAN_SCANS,
-               f"cli mulran: {fx['n_scans']} scans written")
-        ebag = os.path.join(root, "export.bag")
-        t0 = time.perf_counter()
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(["export", "--mulran", d, "--bag", ebag,
-                           "--compression", "bz2"])
-        _check(rc == 0, f"cli export: exit {rc}")
-        stats = json.loads(buf.getvalue())
-        ds = MulranDataset.load(d)
-        gts = [rosbag.parse_odometry(m) for _, _, _, m in
-               rosbag.BagReader(ebag).messages(["/gt"])]
-        n_radar = sum(1 for _ in rosbag.BagReader(ebag).messages(
-            ["/radar/polar"]))
-        _check(stats == {"gt": len(ds.gt_stamps), "radar": n_radar}
-               and len(gts) == len(ds.gt_stamps) and n_radar > 0,
-               f"cli export: {stats}, {len(gts)} poses and {n_radar} "
-               f"images read back")
-        p_err = max(float(np.abs(g["p"] - pose[:, 3]).max())
-                    for g, pose in zip(gts, ds.gt_poses))
-        r_err = max(float(np.abs(quat_to_mat_np(g["q"]) - pose[:, :3]).max())
-                    for g, pose in zip(gts, ds.gt_poses))
-        _check(p_err == 0.0 and r_err < 1e-5,
-               f"cli export: read back |dp| {p_err}, |dR| {r_err}")
-        export_s = time.perf_counter() - t0
-        o = os.path.join(root, "out_mulran")
-        r = _cli_run("mulran", ["slam", "--mulran", d, "--map-backend",
-                                "occupancy", "--esdf"], o,
-                     ("trajectory.tum", "dlio_map.pcd", "occupied.ply",
-                      "esdf.npz", "esdf_slice.png"), (A, C))
-        _check(r["launches"][B] == 0, "cli mulran: kernel B launched on "
-               "the occupancy map")
-        line = [ln for ln in r["stdout"].splitlines()
-                if ln.startswith("ATE RMSE vs ground truth:")]
-        _check(len(line) == 1, "cli mulran: no ATE line")
-        ate = float(line[0].split(":")[1].split("m")[0])
-        _check(ate < CLI_MULRAN_ATE, f"cli mulran: ATE {ate:.4f} m")
-        _cli_line("mulran", f"MulRan directory, {fx['n_scans']} scans x "
-                  f"32768 points (written in {gen_s:.2f} s; export to a bz2 "
-                  f"bag and read back in {export_s:.2f} s: {stats}, poses "
-                  f"exact, rotations within {r_err:.1e}), occupancy map", r,
-                  ate, f"; ESDF "
-                  f"{_esdf_observed(os.path.join(o, 'esdf.npz'))} observed "
-                  f"voxels")
-        out["mulran_occupancy"] = r["launches"]
+    # (c) a MulRan directory: export to a bag and read it back, then
+    # the occupancy map
+    d = os.path.join(root, "mulran")
+    t0 = time.perf_counter()
+    fx = fixtures.write_mulran_fixture(d, duration=3.5,
+                                       n_points=32768, seed=42)
+    gen_s = time.perf_counter() - t0
+    _check(fx["n_scans"] == CLI_MULRAN_SCANS,
+           f"cli mulran: {fx['n_scans']} scans written")
+    ebag = os.path.join(root, "export.bag")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["export", "--mulran", d, "--bag", ebag,
+                       "--compression", "bz2"])
+    _check(rc == 0, f"cli export: exit {rc}")
+    stats = json.loads(buf.getvalue())
+    ds = MulranDataset.load(d)
+    gts = [rosbag.parse_odometry(m) for _, _, _, m in
+           rosbag.BagReader(ebag).messages(["/gt"])]
+    n_radar = sum(1 for _ in rosbag.BagReader(ebag).messages(
+        ["/radar/polar"]))
+    _check(stats == {"gt": len(ds.gt_stamps), "radar": n_radar}
+           and len(gts) == len(ds.gt_stamps) and n_radar > 0,
+           f"cli export: {stats}, {len(gts)} poses and {n_radar} "
+           f"images read back")
+    p_err = max(float(np.abs(g["p"] - pose[:, 3]).max())
+                for g, pose in zip(gts, ds.gt_poses))
+    r_err = max(float(np.abs(quat_to_mat_np(g["q"]) - pose[:, :3]).max())
+                for g, pose in zip(gts, ds.gt_poses))
+    _check(p_err == 0.0 and r_err < 1e-5,
+           f"cli export: read back |dp| {p_err}, |dR| {r_err}")
+    export_s = time.perf_counter() - t0
+    o = os.path.join(root, "out_mulran")
+    r = _cli_run("mulran", ["slam", "--mulran", d, "--map-backend",
+                            "occupancy", "--esdf"], o,
+                 ("trajectory.tum", "dlio_map.pcd", "occupied.ply",
+                  "esdf.npz", "esdf_slice.png"), (A, C))
+    _check(r["launches"][B] == 0, "cli mulran: kernel B launched on "
+           "the occupancy map")
+    line = [ln for ln in r["stdout"].splitlines()
+            if ln.startswith("ATE RMSE vs ground truth:")]
+    _check(len(line) == 1, "cli mulran: no ATE line")
+    ate = float(line[0].split(":")[1].split("m")[0])
+    _check(ate < CLI_MULRAN_ATE, f"cli mulran: ATE {ate:.4f} m")
+    _cli_line("mulran", f"MulRan directory, {fx['n_scans']} scans x "
+              f"32768 points (written in {gen_s:.2f} s; export to a bz2 "
+              f"bag and read back in {export_s:.2f} s: {stats}, poses "
+              f"exact, rotations within {r_err:.1e}), occupancy map", r,
+              ate, f"; ESDF "
+              f"{_esdf_observed(os.path.join(o, 'esdf.npz'))} observed "
+              f"voxels")
+    out["mulran_occupancy"] = r["launches"]
     print(f"[12 cli] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out, capture
+
+
+# ---------------------------------------------------------------------------
+# The live path and the player (phase 13), the multi-sequence runtime
+# (phase 14)
+# ---------------------------------------------------------------------------
+
+LIVE_PORTS = (47502, 47503)   # loopback: lidar, IMU (phase 13's stream)
+LIVE_ATE = 0.15          # m: tests/test_pcap_e2e.py:58's bound
+LIVE_DRAIN_S = 1.0       # s the receiver polls on after the last packet
+                         # (ten empty 100 ms polls; the driver raises at 60)
+BATCH_LADDER = (1, 2, 4, 8)
+BATCH_SECONDS = 3.5      # s of scans per sequence (scripts/bench_batch.py
+                         # simulates 12 s: 120 scans)
+BATCH_ATE = 0.08         # m: tests/test_multi_pipeline.py:82's bound
+
+
+def _send_paced(pkts, speed: float, ports, log: dict) -> None:
+    """The sensor: each packet to its loopback port at its capture stamp
+    over ``speed`` after the first; the send time of the last and the
+    most any packet went out behind its schedule in ``log``."""
+    import socket
+
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    t_first = pkts[0][0]
+    late = 0.0
+    t0 = time.monotonic()
+    for ts, port, payload in pkts:
+        due = t0 + (ts - t_first) / speed
+        lag = due - time.monotonic()
+        if lag > 0:
+            time.sleep(lag)
+        else:
+            late = max(late, -lag)
+        tx.sendto(payload, ("127.0.0.1",
+                            ports[0] if port == 7502 else ports[1]))
+    log["last_sent"] = time.monotonic()
+    log["max_late_s"] = late
+    tx.close()
+
+
+def _live_run(tag: str, meta: dict, speed: float,
+              jax_rule: bool = False) -> dict:
+    """The composition ``cli live`` builds (``SlamSystem(cfg,
+    pipelined=True)`` with TSDF, default config, fed by ``LiveDriver`` in
+    sensor-stamp mode) receiving the capture from a sender thread paced at
+    ``speed`` x its capture stamps; the launch counters set to 0 just
+    before and read just after, plain-version calls counted. With
+    ``jax_rule`` the driver drops a frame the IMU does not cover yet, as
+    the JAX driver does, instead of holding it."""
+    import threading
+
+    import torch
+
+    from noetic_slam_tpu_torch import SlamSystem
+    from noetic_slam_tpu_torch.config.params import load_config
+    from noetic_slam_tpu_torch.io import ouster as ou
+    from noetic_slam_tpu_torch.io.pcap import read_pcap
+    from noetic_slam_tpu_torch.runtime.live import LiveDriver
+    from noetic_slam_tpu_torch.runtime.pipeline import NeedMoreImu
+    from noetic_slam_tpu_torch.utils import fixtures, synthetic
+
+    with open(meta["metadata"]) as f:
+        info = ou.SensorInfo.from_json(f.read())
+    pkts = list(read_pcap(meta["pcap"]))
+    n_lidar = sum(1 for _, port, _ in pkts if port == 7502)
+    slam = SlamSystem(load_config(None), pipelined=True)
+    _check(slam.device.type == "cuda", f"live {tag}: not on the card")
+    calls, done_at = [], []
+    inner = slam.process_scan
+
+    def process_scan(*a):
+        calls.append(a[0])
+        out = inner(*a)
+        done_at.append(time.monotonic())
+        return out
+
+    slam.process_scan = process_scan
+
+    class DropRule(LiveDriver):
+        def _submit(self, header, xyz, rel_t):
+            try:
+                self.slam.process_scan(header, xyz, rel_t)
+                self.n_scans += 1
+            except NeedMoreImu:
+                self.n_refused += 1
+
+    drv = (DropRule if jax_rule else LiveDriver)(
+        slam, info, lidar_port=LIVE_PORTS[0], imu_port=LIVE_PORTS[1],
+        timestamp_mode="sensor")
+    counters = _counters()
+    probes = _Probes()
+    log: dict = {}
+    sender = threading.Thread(target=_send_paced,
+                              args=(pkts, speed, LIVE_PORTS, log))
+    gc.collect()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    s0 = slam.host_syncs
+    try:
+        with probes, _ThreadErrors() as errs:
+            t0 = time.monotonic()
+            sender.start()
+            while sender.is_alive() or (
+                    time.monotonic() - log["last_sent"] < LIVE_DRAIN_S):
+                drv.poll_once()
+            sender.join()
+            torch.cuda.synchronize()
+        dropped = drv.source.lidar_dropped
+    finally:
+        drv.close()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _check(errs.n == 0, f"live {tag}: {errs.n} thread exceptions")
+    _check(probes.plain_calls == 0,
+           f"live {tag}: {probes.plain_calls} calls reached a plain version")
+    traj = slam.flush()
+    n = drv.n_scans
+    _check(len(traj) == n, f"live {tag}: {len(traj)} poses, {n} scans")
+    _check(bool(np.isfinite(traj).all()), f"live {tag}: non-finite pose")
+    gt = np.loadtxt(meta["gt"])
+    ate = (synthetic.ate_rmse(traj[:, 0] - fixtures.PCAP_BASE_NS * 1e-9,
+                              traj[:, 1:4], gt[:, 0], gt[:, 1:4])
+           if n > 1 else float("nan"))
+    return {"frames": meta["n_frames"], "packets": n_lidar, "calls":
+            len(calls), "scans": n, "ring_dropped": dropped,
+            "rate": (n - 1) / max(done_at[-1] - done_at[0], 1e-9) if n > 1
+            else 0.0,
+            "lag_s": done_at[-1] - log["last_sent"] if n else float("nan"),
+            "send_s": log["last_sent"] - t0, "max_late_s": log["max_late_s"],
+            "ate": ate, "syncs": (slam.host_syncs - s0) / max(n, 1),
+            "launches": launches, "imu": drv.n_imu, "held": drv.n_held,
+            "refused": drv.n_refused}
+
+
+def _live_line(tag: str, speed: float, r: dict) -> None:
+    print(f"[13 live] {tag}: capture sent at {speed:g}x its stamps "
+          f"({10 * speed:g} Hz frames) in {r['send_s']:.2f} s (a packet at "
+          f"most {r['max_late_s'] * 1e3:.1f} ms behind schedule): "
+          f"{r['frames']} frames sent, {r['scans']} scans processed, "
+          f"{r['refused']} frames dropped (calibration hold, or replaced "
+          f"while held), {r['held']} held for their IMU and run after the "
+          f"next IMU drain ({r['calls']} calls into the system; the last "
+          f"frame never completes); "
+          f"source.lidar_dropped {r['ring_dropped']} packets of "
+          f"{r['packets']}; processed rate {r['rate']:.2f} scans/s; lag last "
+          f"packet sent -> last scan done {r['lag_s']:.3f} s; ATE "
+          f"{r['ate']:.4f} m; host syncs/scan "
+          f"{r['syncs']:.2f}; {r['imu']} IMU packets; launches "
+          f"{r['launches']}", flush=True)
+
+
+def phase_live(root: str, meta: dict) -> dict:
+    """Phase 13: (a) the capture of phase 12(a) streamed over loopback at
+    its sensor's pace (10 Hz) into ``LiveDriver`` + ``SlamSystem``; (b)
+    the same stream at twice the pace (its rate and drops are the
+    finding); (c) ``cli player --rate 1`` over phase 12(c)'s MulRan
+    directory. Returns the launches of each kernel per run."""
+    import os
+
+    from noetic_slam_tpu_torch.io.mulran import MulranDataset
+    from noetic_slam_tpu_torch.utils import synthetic
+
+    A, B = "nn1_fused", "block_accumulate"
+    t_phase = time.perf_counter()
+    out = {}
+    r = _live_run("(a0) 10 Hz, JAX rule", meta, 1.0, jax_rule=True)
+    _live_line("(a0) sensor pace, the JAX driver's rule (a frame the IMU "
+               "does not cover yet is dropped)", 1.0, r)
+    out["sensor_10hz_jax_rule"] = r["launches"]
+    r = _live_run("(a) 10 Hz", meta, 1.0)
+    _live_line("(a) sensor pace", 1.0, r)
+    _check(r["ate"] < LIVE_ATE, f"live (a): ATE {r['ate']:.4f} m")
+    _check(r["launches"][A] > 0 and r["launches"][B] > 0,
+           f"live (a): launches {r['launches']}")
+    out["sensor_10hz"] = r["launches"]
+    r = _live_run("(b) 20 Hz", meta, 2.0)
+    _live_line("(b) twice the pace", 2.0, r)
+    out["sensor_20hz"] = r["launches"]
+
+    d = os.path.join(root, "mulran")
+    o = os.path.join(root, "out_player")
+    r = _cli_run("player", ["player", "--mulran", d, "--rate", "1"], o,
+                 ("trajectory.tum",), (A, B), prefix="[13 live]")
+    stats = json.loads(r["stdout"].splitlines()[0])
+    ds = MulranDataset.load(d)
+    traj = r["traj"]
+    ate = synthetic.ate_rmse(traj[:, 0], traj[:, 1:4], ds.gt_stamps,
+                             ds.gt_poses[:, :, 3])
+    _check(ate < CLI_MULRAN_ATE, f"cli player: ATE {ate:.4f} m")
+    span = float(ds.imu_stamps[-1] - ds.imu_stamps[0])
+    print(f"[13 live] (c) cli player --rate 1: {stats['n_events']} events "
+          f"over {span:.2f} s of data in {r['wall']:.2f} s wall (the player "
+          f"{stats['wall_time']:.2f} s); {len(traj)} poses, ATE {ate:.4f} m; "
+          f"host syncs {r['host_syncs']} "
+          f"({r['host_syncs'] / max(len(traj), 1):.2f}/scan); no thread "
+          f"exception; launches {r['launches']}", flush=True)
+    out["player"] = r["launches"]
+    print(f"[13 live] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+def _batch_cfg():
+    """scripts/bench_batch.py:57-67's full-width configuration."""
+    from noetic_slam_tpu_torch.config import (
+        CapacityConfig,
+        DlioConfig,
+        KeyframeConfig,
+        TsdfConfig,
+    )
+
+    return DlioConfig(
+        capacity=CapacityConfig(
+            max_points=8192, max_ds_points=4096, max_deskew_frames=1024,
+            max_imu_window=128, max_keyframes=64, max_submap_kf=16,
+            max_trajectory=4096),
+        adaptive=False, keyframe=KeyframeConfig(thresh_dist=0.5,
+                                                thresh_rot=45.0),
+        tsdf=TsdfConfig(voxel_size=0.2, truncation=0.6, max_blocks=8192,
+                        space_carving=False, scan_block_cap=2048))
+
+
+def phase_batch(root: str) -> dict:
+    """Phase 14: the B = 1/2/4/8 ladder of scripts/bench_batch.py on the
+    card at its full width, one ``make_sim(seed=77)`` shared by every
+    sequence, the sequence length cut; then ``cli batch --synthetic 2
+    --duration 4 --mulran <phase 12(c)'s directory> --max-scans 25
+    --checkpoint`` and a ``--resume`` from its checkpoint that runs the
+    feeds on to their end.
+    Returns the launches of each kernel per run."""
+    import os
+
+    import torch
+
+    from noetic_slam_tpu_torch.runtime import multi
+    from noetic_slam_tpu_torch.runtime.multi import (
+        ArrayFeed,
+        MultiSequencePipeline,
+        run_lockstep,
+    )
+    from noetic_slam_tpu_torch.utils import synthetic
+
+    A = "nn1_fused"
+    t_phase = time.perf_counter()
+    cfg = _batch_cfg()
+    t0 = time.perf_counter()
+    sim = synthetic.make_sim(duration=BATCH_SECONDS, calib_time=3.1,
+                             n_points=cfg.capacity.max_points, seed=77)
+    scans = [sim.scan(i) for i in range(len(sim.scan_stamps))]
+    print(f"[14 batch] scripts/bench_batch.py's configuration at full width "
+          f"({cfg.capacity.max_points} points, {cfg.capacity.max_ds_points} "
+          f"kept, {cfg.capacity.max_deskew_frames} deskew frames, "
+          f"{cfg.capacity.max_imu_window}-sample IMU window, "
+          f"{cfg.capacity.max_keyframes} keyframes, "
+          f"{cfg.capacity.max_submap_kf} submap keyframes); the sequence "
+          f"cut from 12 s to {BATCH_SECONDS:g} s ({len(scans)} scans after "
+          f"the 3.1 s hold, made in {time.perf_counter() - t0:.1f} s), one "
+          f"sim shared by every sequence", flush=True)
+    counters = _counters()
+    out = {}
+    rows = []
+    for B in BATCH_LADDER:
+        probes = _Probes()
+        feeds = [ArrayFeed(sim.imu_stamps, sim.imu_ang, sim.imu_acc,
+                           sim.scan_stamps, lambda i: scans[i])
+                 for _ in range(B)]
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for fn in counters.values():
+            fn.launches = 0
+        with probes:
+            mp = MultiSequencePipeline(cfg, n_seq=B)
+            t0 = time.perf_counter()
+            trajs = run_lockstep(mp, feeds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        _check(all(d.type == "cuda" for d in mp.seq_device),
+               f"batch B={B}: not on the card")
+        _check(probes.plain_calls == 0, f"batch B={B}: "
+               f"{probes.plain_calls} calls reached a plain version")
+        _check(launches[A] > 0 and launches["block_accumulate"] == 0
+               and launches["logodds_accumulate"] == 0,
+               f"batch B={B}: launches {launches}")
+        total = sum(len(t) for t in trajs)
+        ates = [synthetic.ate_rmse(t[:, 0], t[:, 1:4], sim.gt_stamps,
+                                   sim.gt_pos) for t in trajs]
+        for i, a in enumerate(ates):
+            _check(len(trajs[i]) > 0 and a < BATCH_ATE,
+                   f"batch B={B}: sequence {i} ATE {a:.4f} m")
+        equal = all(np.array_equal(t, trajs[0]) for t in trajs)
+        spread = max(float(np.abs(t[:, 1:4] - trajs[0][:, 1:4]).max())
+                     if t.shape == trajs[0].shape else float("inf")
+                     for t in trajs)
+        peak = torch.cuda.max_memory_allocated()
+        rows.append((B, total / wall))
+        print(f"[14 batch] B={B}: {total} scans in {wall:.2f} s = "
+              f"{total / wall:.2f} scans/s total, {total / wall / B:.2f} per "
+              f"sequence; {mp.rounds} rounds, host syncs/round "
+              f"{mp.host_syncs / mp.rounds:.2f} "
+              f"({mp.host_syncs / total:.2f}/scan); launches of A "
+              f"{launches[A]} ({launches[A] / total:.2f}/scan); peak memory "
+              f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB before); ATE "
+              f"{', '.join(f'{a:.4f}' for a in ates)} m; trajectories "
+              f"bitwise equal: {equal} (largest |dp| from sequence 0 "
+              f"{spread:.2e} m)", flush=True)
+        out[f"B{B}"] = launches
+        del mp, trajs
+    print(f"[14 batch] scaling (total scans/s over B=1's): "
+          + ", ".join(f"B={b} {r / rows[0][1]:.2f}x" for b, r in rows),
+          flush=True)
+
+    d = os.path.join(root, "mulran")
+    o = os.path.join(root, "out_batch")
+    argv = ["batch", "--synthetic", "2", "--duration", "4", "--mulran", d]
+    files = ("00_mulran.tum", "01_synthetic.tum", "02_synthetic.tum")
+    r = _cli_run("batch", argv + ["--max-scans", "25", "--checkpoint"], o,
+                 files + ("batch_state.nst.npz",), (A,), prefix="[14 batch]",
+                 traj_file=None,
+                 instances=_Instances(multi, "MultiSequencePipeline"))
+    summary = json.loads(r["stdout"].splitlines()[-1])
+    for e in summary["sequences"]:
+        _check(e["n_poses"] > 0 and e.get("ate_rmse_m", 0.0) < CLI_MULRAN_ATE,
+               f"cli batch: {e}")
+    mp = r["made"]
+    print(f"[14 batch] cli batch: {summary['total_poses']} poses of "
+          f"{len(summary['sequences'])} sequences in {r['wall']:.2f} s wall "
+          f"({summary['scans_per_sec']} scans/s over the run); host "
+          f"syncs/round {r['host_syncs'] / max(mp.rounds, 1):.2f}; launches "
+          f"{r['launches']}", flush=True)
+    out["cli"] = r["launches"]
+    ck = os.path.join(o, "batch_state.nst.npz")
+    r = _cli_run("batch resume", argv + ["--resume", ck], o + "_resume",
+                 (), (), prefix="[14 batch]", traj_file=None,
+                 instances=_Instances(multi, "MultiSequencePipeline"))
+    resumed = json.loads(r["stdout"].splitlines()[-1])
+    _check(f"at round {summary['rounds']}" in r["stdout"]
+           and resumed["rounds"] > summary["rounds"],
+           f"cli batch resume: {resumed}")
+    print(f"[14 batch] cli batch --resume: from round {summary['rounds']} "
+          f"to {resumed['rounds']}, {resumed['total_poses']} more poses in "
+          f"{r['wall']:.2f} s; launches {r['launches']}", flush=True)
+    out["cli_resume"] = r["launches"]
+    print(f"[14 batch] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return out
 
 
@@ -1801,14 +2208,19 @@ def main(argv=None) -> int:
     closure_launches = phase_closure(probes)
     _check(probes.verify_a > 0, "no verify_loop call launched kernel A")
     extra = phase_system_kernels(probes)
-    cli_launches = phase_cli(sim, scans)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        cli_launches, capture = phase_cli(sim, scans, root)
+        live_launches = phase_live(root, capture)
+        batch_launches = phase_batch(root)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         _check(k["launches"] > 0, f"{k['name']} never launched on its path")
         k["system_launches"] = system_launches[k["name"]]
         k["closure_launches"] = closure_launches[k["name"]]
-        k["cli_launches"] = {run: n[k["name"]]
-                             for run, n in cli_launches.items()}
+        for key, runs in (("cli_launches", cli_launches),
+                          ("live_launches", live_launches),
+                          ("batch_launches", batch_launches)):
+            k[key] = {run: n[k["name"]] for run, n in runs.items()}
         k.update(extra.get(k["name"], {}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_cold",
@@ -1816,7 +2228,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {**{key: k[key] for key in keys},
          **{key: v for key, v in k.items()
-            if key.startswith(("main_shape", "system", "closure", "cli"))}}
+            if key.startswith(("main_shape", "system", "closure", "cli",
+                               "live", "batch"))}}
         for k in kernels]}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

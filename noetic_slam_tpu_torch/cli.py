@@ -8,6 +8,14 @@ Subcommands:
            sequence, writing the trajectory (TUM), the sparse map (PCD),
            the dense map (PLY) and, on request, the mesh, an ESDF region,
            a checkpoint and renders.
+  batch    Several sequences (MulRan directories and synthetic ones) in
+           lockstep through the multi-sequence odometry
+           (``runtime.multi``), one TUM trajectory each, with a batch
+           checkpoint and resume.
+  live     SLAM on a live Ouster sensor: UDP packets into ``SlamSystem``
+           (``runtime.live``), with IMU-rate pose output.
+  player   Interactive MulRan player (pause, speed, loop, seek) feeding
+           ``SlamSystem``.
   export   Write a MulRan sequence's ground truth and radar images to a
            rosbag (the file player's SaveRosbag).
   eval     ATE of a TUM trajectory against ground truth.
@@ -21,6 +29,9 @@ Examples:
   python -m noetic_slam_tpu_torch.cli slam --mulran /data/KAIST03 --out out/
   python -m noetic_slam_tpu_torch.cli slam --pcap cap.pcap --metadata m.json
   python -m noetic_slam_tpu_torch.cli slam --synthetic 10 --device cpu
+  python -m noetic_slam_tpu_torch.cli batch --mulran A --mulran B --synthetic 2
+  python -m noetic_slam_tpu_torch.cli live --metadata m.json --duration 60
+  python -m noetic_slam_tpu_torch.cli player --mulran /data/KAIST03 --out out/
   python -m noetic_slam_tpu_torch.cli info
 """
 
@@ -288,6 +299,130 @@ def cmd_slam(args) -> int:
     return 0
 
 
+def cmd_live(args) -> int:
+    """Live Ouster sensor mode (os_driver + odometry in one process)."""
+    from noetic_slam_tpu_torch.config.params import load_config
+    from noetic_slam_tpu_torch.io.ouster import SensorInfo
+    from noetic_slam_tpu_torch.runtime.live import LiveDriver
+    from noetic_slam_tpu_torch.runtime.slam import SlamSystem
+
+    cfg = load_config(args.config)
+    with open(args.metadata) as f:
+        info = SensorInfo.from_json(f.read())
+    slam = SlamSystem(cfg, enable_tsdf=not args.no_tsdf, pipelined=True,
+                      device=args.device)
+    highrate = []
+    if args.pose_rate > 0:
+        # IMU-rate pose output (the reference publishes odom/pose at
+        # ~100 Hz from its IMU callback + timer, odom.cc:315-488): the
+        # host extrapolator serves pose queries between scans from the
+        # buffered IMU samples (runtime/poseext.py) with no device
+        # traffic. Collected here; a live consumer would query
+        # slam.pose_at(t) directly.
+        slam.enable_pose_extrapolation()
+    drv = LiveDriver(slam, info, lidar_port=args.lidar_port,
+                     imu_port=args.imu_port,
+                     timestamp_mode=args.timestamp_mode)
+    print(f"listening on udp {args.lidar_port}/{args.imu_port} "
+          f"({info.pixels_per_column}x{info.columns_per_frame})")
+    try:
+        if args.pose_rate > 0:
+            period = 1.0 / args.pose_rate
+            next_q = None
+            t0 = time.monotonic()
+            while (args.duration is None
+                   or time.monotonic() - t0 < args.duration):
+                drv.poll_once()
+                ex = slam.extrapolator
+                if ex is not None and ex.seed_stamp is not None:
+                    if next_q is None:
+                        next_q = ex.seed_stamp
+                    # serve every due stamp up to the newest IMU sample
+                    horizon = (slam.odometry._imu_stamps[-1]
+                               if len(slam.odometry._imu_stamps) else None)
+                    while horizon is not None and next_q <= horizon:
+                        q, p = slam.pose_at(next_q)
+                        highrate.append((next_q, *p, *q))
+                        next_q += period
+        else:
+            drv.run(duration_s=args.duration)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        # the ring's drop count is read before the source closes (the JAX
+        # CLI reads it after, through a freed handle)
+        dropped = drv.source.lidar_dropped if drv.source else 0
+        drv.close()
+    if highrate:
+        import numpy as np
+
+        from noetic_slam_tpu_torch.io.export import write_tum_trajectory
+
+        out = args.pose_out or "pose_highrate.tum"
+        write_tum_trajectory(out, np.asarray(highrate))
+        print(f"high-rate pose: {len(highrate)} samples @ "
+              f"{args.pose_rate:.0f} Hz -> {out}")
+    print(f"scans={drv.n_scans} imu={drv.n_imu} dropped={dropped}")
+    return 0
+
+
+def cmd_player(args) -> int:
+    """Interactive MulRan player (the reference Qt GUI's role,
+    mainwindow.cpp:6-206): keyboard pause/speed/loop/seek while the SLAM
+    pipeline consumes the stream."""
+    from noetic_slam_tpu_torch.config.params import load_config
+    from noetic_slam_tpu_torch.io.mulran import MulranDataset
+    from noetic_slam_tpu_torch.io.player import InteractivePlayer
+    from noetic_slam_tpu_torch.runtime.pipeline import NeedMoreImu
+    from noetic_slam_tpu_torch.runtime.slam import SlamSystem
+
+    cfg = load_config(args.config)
+    ds = MulranDataset.load(args.mulran)
+    slam = SlamSystem(cfg, enable_tsdf=not args.no_tsdf, device=args.device)
+    pending = {"scan": None}
+
+    def on_event(stamp, kind, idx):
+        if kind == "imu":
+            slam.push_imu(ds.imu_stamps[idx], ds.imu_gyro[idx],
+                          ds.imu_accel[idx])
+            if pending["scan"] is not None:
+                try:
+                    s, i = pending["scan"]
+                    slam.process_scan(s, ds.read_scan(i)[:, :3])
+                    pending["scan"] = None
+                except NeedMoreImu:
+                    pass
+        elif kind == "scan" and slam.odometry.calibrated:
+            try:
+                slam.process_scan(stamp, ds.read_scan(idx)[:, :3])
+            except NeedMoreImu:
+                pending["scan"] = (stamp, idx)
+
+    def on_seek(stamp):
+        pending["scan"] = None
+        print(f"\nseek -> t={stamp:.3f} (odometry continues from its "
+              "current state, as with the reference player)",
+              file=sys.stderr)
+
+    player = InteractivePlayer(
+        ds, on_event, rate=args.rate, loop=args.loop, on_seek=on_seek,
+        skip_stop_region=(tuple(args.skip_region)
+                          if args.skip_region else None),
+        keyboard=True, status=True)
+    stats = player.run(max_events=args.max_events)
+    print(json.dumps(stats))
+    if args.out:
+        from noetic_slam_tpu_torch.io.export import write_tum_trajectory
+
+        traj = slam.flush()
+        if len(traj):
+            os.makedirs(args.out, exist_ok=True)
+            write_tum_trajectory(os.path.join(args.out, "trajectory.tum"),
+                                 traj)
+            print(f"trajectory: {len(traj)} poses -> trajectory.tum")
+    return 0
+
+
 def cmd_eval(args) -> int:
     """ATE evaluation: TUM trajectory vs ground truth (TUM or MulRan
     global_pose.csv)."""
@@ -320,6 +455,99 @@ def cmd_export(args) -> int:
     stats = export_mulran_bag(ds, args.bag, radar=not args.no_radar,
                               compression=args.compression)
     print(json.dumps(stats))
+    return 0
+
+
+def cmd_batch(args) -> int:
+    """Multi-sequence odometry: B sequences advance in lockstep, one step
+    each per round (runtime/multi), sequence i on the i-th contiguous
+    block of ``--devices`` cards. The reference runs one bag per process
+    tree (roslaunch); here N bags are one program."""
+    import numpy as np
+    import torch
+
+    from noetic_slam_tpu_torch import resolve_device
+    from noetic_slam_tpu_torch.config.params import load_config
+    from noetic_slam_tpu_torch.io.export import write_tum_trajectory
+    from noetic_slam_tpu_torch.runtime.multi import (
+        ArrayFeed,
+        MultiSequencePipeline,
+        run_lockstep,
+    )
+    from noetic_slam_tpu_torch.utils.synthetic import ate_rmse
+
+    cfg = load_config(args.config)
+    os.makedirs(args.out, exist_ok=True)
+    feeds, names, gts = [], [], []
+    for d in args.mulran or []:
+        from noetic_slam_tpu_torch.io.mulran import MulranDataset
+
+        ds = MulranDataset.load(d)
+        feeds.append(ArrayFeed.from_dataset(ds, max_scans=args.max_scans))
+        base = os.path.basename(os.path.normpath(d)) or "seq"
+        names.append(f"{len(names):02d}_{base}")
+        gts.append(None if ds.gt_stamps is None else np.column_stack(
+            [ds.gt_stamps, ds.gt_poses[:, :, 3]]))
+    for k in range(args.synthetic):
+        from noetic_slam_tpu_torch.utils import synthetic
+
+        sim = synthetic.make_sim(duration=args.duration, calib_time=3.1,
+                                 n_points=4096, seed=100 + k)
+        scans = [sim.scan(i) for i in range(len(sim.scan_stamps))]
+        feeds.append(ArrayFeed(sim.imu_stamps, sim.imu_ang, sim.imu_acc,
+                               sim.scan_stamps,
+                               lambda i, sc=scans: sc[i],
+                               max_scans=args.max_scans))
+        names.append(f"{len(names):02d}_synthetic")
+        gts.append(np.column_stack([sim.gt_stamps, sim.gt_pos]))
+
+    B = len(feeds)
+    if B == 0:
+        print("no sequences given (--mulran and/or --synthetic)",
+              file=sys.stderr)
+        return 2
+    dev = resolve_device(args.device)
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    D = args.devices or n_dev
+    if D > n_dev:
+        print(f"--devices {D} > {n_dev} available; clamping to {n_dev}",
+              file=sys.stderr)
+        D = n_dev
+    while B % D:
+        D -= 1                      # most devices dividing B
+    devices = ([dev] if D == 1
+               else [torch.device(dev.type, i) for i in range(D)])
+    print(f"batch: {B} sequences over {D} device(s)")
+
+    t0 = time.perf_counter()
+    mp = MultiSequencePipeline(cfg, n_seq=B, devices=devices)
+    if args.resume:
+        mp.load(args.resume, feeds)
+        print(f"resumed from {args.resume} at round {mp.rounds}")
+    trajs = run_lockstep(mp, feeds,
+                         rounds_per_dispatch=args.rounds_per_dispatch)
+    wall = time.perf_counter() - t0
+    if args.checkpoint:
+        ck = os.path.join(args.out, "batch_state.nst.npz")
+        mp.save(ck, feeds)
+        print(f"checkpoint -> {ck}")
+
+    per_seq = []
+    total = 0
+    for name, traj, gt in zip(names, trajs, gts):
+        entry = {"name": name, "n_poses": int(len(traj))}
+        if len(traj):
+            write_tum_trajectory(
+                os.path.join(args.out, f"{name}.tum"), traj)
+            if gt is not None:
+                entry["ate_rmse_m"] = round(float(ate_rmse(
+                    traj[:, 0], traj[:, 1:4], gt[:, 0], gt[:, 1:4])), 4)
+        total += entry["n_poses"]
+        per_seq.append(entry)
+    print(json.dumps({"sequences": per_seq, "devices": D,
+                      "rounds": mp.rounds, "total_poses": total,
+                      "wall_s": round(wall, 2),
+                      "scans_per_sec": round(total / max(wall, 1e-9), 2)}))
     return 0
 
 
@@ -376,6 +604,34 @@ def main(argv=None) -> int:
     ps.add_argument("--device", default=None, help=device_help)
     ps.set_defaults(fn=cmd_slam)
 
+    pbt = sub.add_parser(
+        "batch", help="multi-sequence SLAM: N bags in lockstep as one "
+                      "program over the cards")
+    pbt.add_argument("--mulran", action="append", default=[],
+                     help="MulRan sequence directory (repeatable)")
+    pbt.add_argument("--synthetic", type=int, default=0,
+                     help="add N synthetic sequences")
+    pbt.add_argument("--duration", type=float, default=10.0,
+                     help="synthetic sequence duration [s]")
+    pbt.add_argument("--config", default=None)
+    pbt.add_argument("--out", default="out_batch")
+    pbt.add_argument("--max-scans", type=int, default=None)
+    pbt.add_argument("--devices", type=int, default=0,
+                     help="cards to spread the sequences over (0 = all; "
+                          "rounded down to a divisor of the sequence "
+                          "count; 1 with --device cpu)")
+    pbt.add_argument("--rounds-per-dispatch", type=int, default=1,
+                     help="lockstep rounds packed and uploaded at a time "
+                          "(offline throughput mode)")
+    pbt.add_argument("--checkpoint", action="store_true",
+                     help="write batch_state.nst.npz (all sequences + feed "
+                          "cursors) at the end")
+    pbt.add_argument("--resume", default=None,
+                     help="resume a multi-bag run from a batch checkpoint "
+                          "(TUM outputs then cover the post-resume part)")
+    pbt.add_argument("--device", default=None, help=device_help)
+    pbt.set_defaults(fn=cmd_batch)
+
     px = sub.add_parser("export", help="export a MulRan sequence's ground "
                                        "truth + radar images to a rosbag "
                                        "(the file player's SaveRosbag)")
@@ -390,6 +646,42 @@ def main(argv=None) -> int:
     pi.add_argument("--config", default=None)
     pi.add_argument("--device", default=None, help=device_help)
     pi.set_defaults(fn=cmd_info)
+
+    pl = sub.add_parser("live", help="live Ouster sensor SLAM")
+    pl.add_argument("--metadata", required=True,
+                    help="sensor metadata JSON file")
+    pl.add_argument("--lidar-port", type=int, default=7502)
+    pl.add_argument("--imu-port", type=int, default=7503)
+    pl.add_argument("--timestamp-mode", default="sensor",
+                    choices=["sensor", "host"])
+    pl.add_argument("--duration", type=float, default=None)
+    pl.add_argument("--config", default=None)
+    pl.add_argument("--no-tsdf", action="store_true")
+    pl.add_argument("--pose-rate", type=float, default=100.0,
+                    help="IMU-rate pose output frequency [Hz] (host "
+                         "extrapolator between scans; 0 = off). The "
+                         "reference's 100 Hz publishPose role "
+                         "(odom.cc:315-488)")
+    pl.add_argument("--pose-out", default=None,
+                    help="high-rate pose TUM output path")
+    pl.add_argument("--device", default=None, help=device_help)
+    pl.set_defaults(fn=cmd_live)
+
+    pp = sub.add_parser("player", help="interactive dataset player "
+                                       "(space/+/-/l/0-9/q)")
+    pp.add_argument("--mulran", required=True)
+    pp.add_argument("--rate", type=float, default=1.0,
+                    help="initial playback rate (1 = real time)")
+    pp.add_argument("--loop", action="store_true")
+    pp.add_argument("--skip-region", nargs=2, type=float, default=None,
+                    metavar=("T0", "T1"))
+    pp.add_argument("--max-events", type=int, default=None)
+    pp.add_argument("--out", default=None,
+                    help="write trajectory.tum here on exit")
+    pp.add_argument("--config", default=None)
+    pp.add_argument("--no-tsdf", action="store_true")
+    pp.add_argument("--device", default=None, help=device_help)
+    pp.set_defaults(fn=cmd_player)
 
     pe = sub.add_parser("eval", help="ATE: trajectory vs ground truth")
     pe.add_argument("trajectory", help="TUM trajectory file")

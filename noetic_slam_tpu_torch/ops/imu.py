@@ -171,8 +171,10 @@ def integrate_imu(window: ImuWindow, start_time: Tensor, q_init: Tensor,
              + (1.0 / 6.0) * iv.jerk[i] * it ** 3)
 
     last_q = query_times[-1]
-    covered = take(stamps, torch.clamp(window.count - 1,
-                                       max=stamps.shape[0] - 1)) >= last_q
+    # an empty window (count 0, an idle step's) is not ok whatever
+    # ``covered`` reads, so its index is clamped at 0 rather than wrapped
+    covered = take(stamps, torch.clamp(window.count - 1, 0,
+                                       stamps.shape[0] - 1)) >= last_q
     ok = (start_time >= stamps[0]) & (window.count >= 2) & covered
     return quat_normalize(q_out), p_out, ok
 

@@ -60,14 +60,15 @@ def _unpack(prefix: str, cls, data, device, defaults=None
     return cls(**fields)
 
 
-def _empty_grid(submap_rows: int) -> dict:
+def _empty_grid(submap_rows: int, prefix: str = "odom") -> dict:
     """The JAX ``OdomState``'s grid-NN index fields as its ``init_state``
-    makes them (the port keeps no grid index)."""
+    makes them (the port keeps no grid index), under ``prefix``."""
     S = submap_rows
-    return {"odom/grid_xyz": np.full((S, 3), 1e6, np.float32),
-            "odom/grid_keys": np.full((S,), np.iinfo(np.int32).max, np.int32),
-            "odom/grid_order": np.zeros((S,), np.int32),
-            "odom/grid_origin": np.zeros((3,), np.float32)}
+    return {f"{prefix}/grid_xyz": np.full((S, 3), 1e6, np.float32),
+            f"{prefix}/grid_keys": np.full((S,), np.iinfo(np.int32).max,
+                                           np.int32),
+            f"{prefix}/grid_order": np.zeros((S,), np.int32),
+            f"{prefix}/grid_origin": np.zeros((3,), np.float32)}
 
 
 def save_checkpoint(path: str, odom_state: OdomState, tsdf_state=None,

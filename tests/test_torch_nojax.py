@@ -1,8 +1,9 @@
 """The port never imports JAX nor anything of the JAX package: in a fresh
 interpreter whose import system refuses ``jax`` and ``noetic_slam_tpu``
 (but not ``noetic_slam_tpu_torch``), every module of the port and every
-module that ``chip_smoke.py`` imports import (the command line and the
-ingest layer among them; ``cli info`` runs), two small steps of the
+module that ``chip_smoke.py`` imports import (the command line, the
+ingest layer, the multi-sequence runtime and the live path among them;
+``cli info`` runs), two small steps of the
 pipeline run on the CPU with each map backend, and a small SlamSystem
 syncs its keyframes into the graph, the archive and the descriptors,
 attempts a closure, and saves and loads a checkpoint."""
@@ -37,6 +38,10 @@ SCRIPT = textwrap.dedent("""
               "io.export", "io.replay", "runtime.native", "runtime.metrics",
               "utils.lz4frame", "utils.fixtures"}
     assert {pkg.__name__ + "." + m for m in ingest} <= set(mods), mods
+    # so are the multi-sequence runtime and the live path
+    entry = {"runtime.multi", "runtime.live", "parallel.batch", "io.player",
+             "io.sensor_http"}
+    assert {pkg.__name__ + "." + m for m in entry} <= set(mods), mods
     # chip_smoke.py imports inside its phases: import every module it names
     tree = ast.parse(open("chip_smoke.py").read())
     smoke = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
