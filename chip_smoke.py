@@ -107,10 +107,37 @@ Phases, each printing its own line:
    submap keyframes; one ``make_sim(seed=77)`` shared by every sequence,
    cut to ``BATCH_SECONDS``) through ``MultiSequencePipeline`` on the
    card: total and per-sequence scans/s, host syncs per round, A's
-   launches, peak memory, each sequence's ATE (each < 0.08 m) and whether
-   the B trajectories are bitwise equal; then ``cli batch --synthetic 2
+   launches, peak memory, each sequence's ATE (each < 0.08 m); the B
+   trajectories must be bitwise equal (the step repeats on the card); then
+   ``cli batch --synthetic 2
    --mulran <phase 12's directory> --checkpoint`` and a ``--resume`` from
-   its checkpoint, both exiting 0; ``batch_launches`` in the JSON line.
+   its checkpoint, both exiting 0; ``batch_launches`` in the JSON line;
+15. the grid NN engine (``nn_engine="grid"``) at the main path's width
+   over phase 6's scans, (a) with ``cov_engine="radius"`` and (b) with
+   ``"knn"`` (grid covariances), each beside the brute engine's run of the
+   same scans, and (c) ``cli slam --config <nn_engine: grid> --mulran``
+   over phase 12's directory beside the default configuration: scans/s,
+   ATE (each < 0.05 m), the largest per-pose distance to the brute run,
+   host syncs; kernel A must not launch on the grid's correspondences;
+   ``grid_launches`` in the JSON line;
+16. the sharded paths (``parallel``) on D = 1 rank under NCCL, then D = 2
+   and 4 ranks under gloo, every rank on the one card
+   (``parallel.mesh.launch``): (a) ``OdometryPipeline`` with
+   ``make_sharded_align`` over 20 of phase 6's scans at its width, every
+   rank's poses bitwise rank 0's and every step within 2 cm of the
+   one-process step from the same state, steps/s, and the bytes each
+   rank hands to ``all_reduce`` per align equal to
+   ``collective_traffic_per_align``'s, and kernel A against its plain
+   version on each rank's first shard search of the tenth align
+   (uncapped, no target count, sentinel rows in the shard); (b) the
+   sharded TSDF (``TsdfConfig`` with the default capacity a rank) over
+   those steps' clouds, each rank's shard equal to the same masks through
+   the plain path, the global block counters the sum of the ranks'
+   changes, blocks per rank and gathered;
+   (c) ``sharded_optimize`` with CG on a 2,048-node chain with one loop
+   edge and dense on 64 nodes, within 1e-3 m of one-process ``optimize``.
+   A and B must launch on every rank (``sharded_launches`` per rank in
+   the JSON line); a rank that fails or hangs ends the phase with an error.
 
 Each kernel phase prints the kernel's time, its plain version's, the time
 of one PyTorch library call computing the same function (used nowhere in
@@ -921,7 +948,12 @@ def _drive(tag: str, cfg, sim, scans, n_scans: int, n_profile: int = 0,
     stats["ate"] = synthetic.ate_rmse(traj[:, 0], traj[:, 1:4],
                                       sim.gt_stamps, sim.gt_pos)
     _check(stats["ate"] < 0.05, f"{tag}: ATE {stats['ate']:.4f} m >= 0.05 m")
-    _check(launches["nn1_fused"] > 0, f"{tag}: kernel A never launched")
+    if cfg.gicp.nn_engine == "brute":
+        _check(launches["nn1_fused"] > 0, f"{tag}: kernel A never launched")
+    else:
+        _check(launches["nn1_fused"] == 0,
+               f"{tag}: kernel A launched {launches['nn1_fused']} times "
+               f"with the grid engine")
     _check(pipe.submap_overflow == 0,
            f"{tag}: submap_overflow {pipe.submap_overflow}")
     _check(int(pipe.tsdf_state.num_blocks) > 0, f"{tag}: empty map")
@@ -2109,6 +2141,8 @@ def phase_batch(root: str) -> dict:
         spread = max(float(np.abs(t[:, 1:4] - trajs[0][:, 1:4]).max())
                      if t.shape == trajs[0].shape else float("inf")
                      for t in trajs)
+        _check(equal, f"batch B={B}: the copies of one sequence are not "
+               f"bitwise equal (largest |dp| {spread:.2e} m)")
         peak = torch.cuda.max_memory_allocated()
         rows.append((B, total / wall))
         print(f"[14 batch] B={B}: {total} scans in {wall:.2f} s = "
@@ -2163,6 +2197,529 @@ def phase_batch(root: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The grid NN engine (phase 15) and the sharded paths (phase 16)
+# ---------------------------------------------------------------------------
+
+GRID_ATE = 0.05          # m: every grid run, as the main path
+SHARDED_SCANS = 20       # scans of phase 6's sequence through the sharded step
+SHARDED_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+SHARDED_KEEP_ALIGN = 10  # kernel A is checked on this align's first search
+SHARDED_STEP_TOL = 0.02  # m: a sharded step against the one-process step
+                         # from the same state (ROADMAP's parity tolerance)
+BA_TOL = 1e-3            # m: sharded against one-process pose-graph solves
+RANK_TIMEOUT = 600.0     # s: a launch whose ranks are not done fails
+
+
+def _grid_cfg(cov_engine: str, engine: str = "grid"):
+    import dataclasses
+
+    cfg = _main_cfg()
+    return cfg.replace(gicp=dataclasses.replace(
+        cfg.gicp, nn_engine=engine, cov_engine=cov_engine))
+
+
+def _pose_gap(traj, ref) -> float:
+    _check(traj.shape == ref.shape and np.array_equal(traj[:, 0], ref[:, 0]),
+           f"trajectories of {len(traj)} and {len(ref)} poses differ in "
+           f"their stamps")
+    return float(np.linalg.norm(traj[:, 1:4] - ref[:, 1:4], axis=-1).max())
+
+
+def phase_grid(sim, scans, n_scans: int, brute_traj, root: str) -> dict:
+    """Phase 15: ``nn_engine="grid"`` at the main path's full width over
+    phase 6's scans, (a) with ``cov_engine="radius"`` (beside phase 6's
+    brute-engine run) and (b) with ``"knn"`` (grid covariances; beside a
+    brute-engine ``"knn"`` run of the same scans); (c) ``cli slam
+    --config <nn_engine: grid> --mulran <phase 12's directory>`` beside
+    the same command on the default (brute) configuration. Kernel A must
+    not launch on the grid's correspondences (it may in ``verify_loop``).
+    Returns the launches of each kernel per run."""
+    import os
+
+    t_phase = time.perf_counter()
+    A, B = "nn1_fused", "block_accumulate"
+    out = {}
+    for tag, cov in (("a", "radius"), ("b", "knn")):
+        if cov == "radius":
+            ref, ref_line = brute_traj[:n_scans], "phase 6's"
+        else:
+            _, ref, _, rst = _drive(f"grid ({tag}) brute reference",
+                                    _grid_cfg(cov, "brute"), sim, scans,
+                                    n_scans)
+            ref_line = f"{rst['rate']:.2f} scans/s, ATE {rst['ate']:.4f} m"
+        pipe, traj, launches, st = _drive(f"grid ({tag})", _grid_cfg(cov),
+                                          sim, scans, n_scans)
+        _check(launches[B] == n_scans, f"grid ({tag}): kernel B launched "
+               f"{launches[B]} times for {n_scans} scans")
+        gap = _pose_gap(traj, ref)
+        print(f"[15 grid] ({tag}) nn_engine=grid, cov_engine={cov}, "
+              f"{n_scans} scans x 32768 points, tsdf: {_path_line(st, pipe)}"
+              f"; largest per-pose distance to the brute engine's run "
+              f"({ref_line}) {gap:.4f} m; launches {launches}", flush=True)
+        out[f"{cov}"] = launches
+        del pipe
+
+    d = os.path.join(root, "mulran")
+    yaml = os.path.join(root, "grid.yaml")
+    with open(yaml, "w") as f:
+        f.write("gicp:\n  nn_engine: grid\n")
+    runs = {}
+    for tag, extra in (("brute", []), ("grid", ["--config", yaml])):
+        r = _cli_run(f"slam {tag}", ["slam", "--mulran", d] + extra,
+                     os.path.join(root, f"out_grid_{tag}"),
+                     ("trajectory.tum", "dlio_map.pcd"), (B,),
+                     prefix="[15 grid]")
+        line = [ln for ln in r["stdout"].splitlines()
+                if ln.startswith("ATE RMSE vs ground truth:")]
+        _check(len(line) == 1, f"cli slam {tag}: no ATE line")
+        r["ate"] = float(line[0].split(":")[1].split("m")[0])
+        runs[tag] = r
+    r = runs["grid"]
+    _check(r["ate"] < GRID_ATE, f"grid (c): ATE {r['ate']:.4f} m")
+    n = len(r["traj"])
+    gap = _pose_gap(r["traj"], runs["brute"]["traj"])
+    print(f"[15 grid] (c) cli slam --config (nn_engine: grid) --mulran: {n} "
+          f"scans in {r['wall']:.2f} s wall = {n / r['wall']:.2f} scans/s "
+          f"(brute {runs['brute']['wall']:.2f} s); ATE {r['ate']:.4f} m "
+          f"(brute {runs['brute']['ate']:.4f}); largest per-pose distance "
+          f"to the brute run {gap:.4f} m; closures {r['closures']}; host "
+          f"syncs {r['host_syncs'] / max(n, 1):.2f}/scan; launches "
+          f"{r['launches']} (brute {runs['brute']['launches']})",
+          flush=True)
+    out["cli"] = r["launches"]
+    print(f"[15 grid] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+def _ba_graph(pg, K: int, dev):
+    """A K-node chain around a 12 m circle with noisy node estimates and
+    one loop edge (0, K-1) measuring the true relative pose: K edges."""
+    import torch
+
+    th = np.linspace(0, 1.9 * np.pi, K).astype(np.float32)
+    gt = np.stack([12 * np.cos(th), 12 * np.sin(th), 0 * th],
+                  -1).astype(np.float32)
+    est = gt + np.random.default_rng(9).normal(
+        scale=0.08, size=gt.shape).astype(np.float32)
+    qs = np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (K, 1))
+    g = pg.init_graph(K, K, device=dev)
+    g = pg.add_nodes_chain(g, qs, est, K)
+    t = lambda a: torch.as_tensor(a, device=dev)          # noqa: E731
+    dq, dp = pg.relative_pose(t(qs[0]), t(gt[0]), t(qs[K - 1]), t(gt[K - 1]))
+    return pg.add_edge(g, t(np.int32(0)), t(np.int32(K - 1)), dq, dp,
+                       w_rot=2.0, w_trans=2.0)
+
+
+def _accum_within_bound(pre, got, want, r, stream):
+    """Kernel B's fusion ``got`` against the plain version's ``want``, both
+    from the TSDF ``pre`` on the sorted ``stream`` of ``r``'s entries: a
+    voxel no sample hits must be bitwise unchanged in both; a hit voxel's
+    weight and wsum must differ by no more than two f32 summations of its
+    n samples and old value in different orders can, 2 (n + 1) u times the
+    sum of their magnitudes (u = 2^-24), plus, for wsum, the clamp's
+    rescaling of that weight difference and 4 u of the result; the
+    whole bound times 1.1. On the main path a voxel takes hundreds of
+    samples in one scan (the plain version's ``index_add_`` sums in
+    another order), so a fixed 1e-5 tolerance does not hold there.
+    Returns (within, largest error over bound, largest |error|, n max)."""
+    import torch
+
+    from noetic_slam_tpu_torch.ops.cuda.tsdf_kernel import entry_sums
+
+    ivox, w, wd = stream
+    idx, (n, aw, awd, sw) = entry_sums(r.rows, r.starts, r.cnts, ivox,
+                                       (torch.ones_like(w), w.abs(),
+                                        wd.abs(), w))
+    u = 2.0 ** -24
+    W0, S0 = pre.weight.view(-1)[idx], pre.wsum.view(-1)[idx]
+    bw = 2 * (n + 1) * u * (W0.abs() + aw)
+    ws = want.wsum.view(-1)[idx]
+    bs = (2 * (n + 1) * u * (S0.abs() + awd)
+          + ws.abs() * bw / torch.clamp(W0 + sw, min=1e-12)
+          + 4 * u * ws.abs())
+    ok, ratio, err = True, 0.0, 0.0
+    for f, bound in (("weight", 1.1 * bw), ("wsum", 1.1 * bs)):
+        d = (getattr(got, f) - getattr(want, f)).abs().view(-1)
+        rest = torch.ones_like(d, dtype=torch.bool)
+        rest[idx] = False
+        ok &= bool((d[idx] <= bound).all()) and bool((d[rest] == 0).all())
+        ratio = max(ratio, float((d[idx] / torch.clamp(bound, min=1e-30)
+                                  ).max()))
+        err = max(err, float(d.max()))
+    return ok, ratio, err, int(n.max())
+
+
+def _sharded_rank(inp: dict) -> dict:
+    """Phase 16's body on one rank (every rank on the card): (a) the
+    odometry pipeline with ``make_sharded_align`` over the scans, beside
+    each step the one-process step from a copy of the same state, then
+    kernel A against its plain version on the operands of the rank's
+    first shard search in align ``SHARDED_KEEP_ALIGN``; (b) the
+    sharded TSDF over the steps' deskewed clouds, beside each fusion the
+    same replicate-then-filter masks through the plain path from a copy of
+    the same shard; (c) the sharded
+    pose-graph solves beside the one-process ones. Launches made for a
+    comparison are not counted."""
+    import torch
+    import torch.distributed as dist
+
+    from noetic_slam_tpu_torch.config import TsdfConfig
+    from noetic_slam_tpu_torch.models import posegraph as pg
+    from noetic_slam_tpu_torch.models import tsdf as tsdf_mod
+    from noetic_slam_tpu_torch.models.odometry import (
+        OdomState,
+        make_odometry_step,
+    )
+    from noetic_slam_tpu_torch.ops import neighbors
+    from noetic_slam_tpu_torch.ops.cuda import nn_kernel as nk
+    from noetic_slam_tpu_torch.ops.cuda.tsdf_kernel import (
+        block_accumulate_plain,
+    )
+    from noetic_slam_tpu_torch.ops.pointcloud import SENTINEL
+    from noetic_slam_tpu_torch.parallel import mesh as pmesh
+    from noetic_slam_tpu_torch.parallel.bundle_adjustment import (
+        sharded_optimize,
+    )
+    from noetic_slam_tpu_torch.parallel.registration import (
+        make_sharded_align,
+    )
+    from noetic_slam_tpu_torch.parallel.tsdf import (
+        gather_sharded_state,
+        init_sharded_tsdf,
+        make_sharded_integrate,
+    )
+    from noetic_slam_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    mesh = pmesh.make_mesh(devices="cuda:0")
+    D, my = mesh.size(), mesh.index()
+    counters = _counters()
+    A, B = "nn1_fused", "block_accumulate"
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    for fn in counters.values():
+        fn.launches = 0
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+
+    # (a) the odometry step with the sharded align
+    cfg = _main_cfg()
+    align = make_sharded_align(mesh)
+    aligns, now, kept = [], {"align": -1}, {}
+    inner_nn = neighbors.nn1
+
+    def keeping(query, target, t_count=None, max_dist=None):
+        if now["align"] == SHARDED_KEEP_ALIGN and "args" not in kept:
+            kept["args"] = (query.clone(), target.clone(), t_count, max_dist)
+        return inner_nn(query, target, t_count, max_dist)
+
+    def counted_align(*a, **k):
+        b0, c0 = mesh.reduce_bytes, mesh.reduce_calls
+        now["align"] = len(aligns)
+        res = align(*a, **k)
+        now["align"] = -1
+        aligns.append((mesh.reduce_bytes - b0, mesh.reduce_calls - c0))
+        return res
+
+    pipe = OdometryPipeline(cfg, align_fn=counted_align)
+    sharded, one = pipe._step, make_odometry_step(cfg)
+    gaps, clouds, t_step, ref_a = [], [], [0.0], [0]
+
+    def step(state, x):
+        a0 = counters[A].launches
+        _, ref = one(OdomState(*(t.clone() for t in state)), x)
+        ref_a[0] += counters[A].launches - a0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, o = sharded(state, x)
+        torch.cuda.synchronize()
+        t_step[0] += time.perf_counter() - t0
+        gaps.append(torch.linalg.vector_norm(o.lidar_p - ref.lidar_p))
+        clouds.append((o.world_xyz.clone(), o.world_valid.clone(),
+                       o.lidar_p.clone()))
+        return state, o
+
+    pipe._step = step
+    stamps, ang, acc = inp["imu"]
+    imu_i = 0
+    torch.cuda.reset_peak_memory_stats()
+    neighbors.nn1 = keeping
+    try:
+        for h, xyz, pt in inp["scans"]:
+            while (imu_i < len(stamps)
+                   and stamps[imu_i] <= h + pt.max() + 0.02):
+                pipe.push_imu(stamps[imu_i], ang[imu_i], acc[imu_i])
+                imu_i += 1
+            pipe.process_scan(h, xyz, pt)
+    finally:
+        neighbors.nn1 = inner_nn
+    traj = pipe.flush()
+    n = len(inp["scans"])
+    la = launches()
+    out["odometry"] = {
+        "traj": traj, "gaps": [float(g) for g in gaps],
+        "syncs": pipe.host_syncs, "steps_per_s": n / t_step[0],
+        "A": la[A] - ref_a[0], "B": la[B], "aligns": aligns,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    # kernel A on the shard: uncapped, no target count, sentinel rows in
+    # the shard (after the path's counts were read: not counted)
+    _check("args" in kept, f"sharded D={D} rank {my}: align "
+           f"{SHARDED_KEEP_ALIGN} made no shard search")
+    q, shard, t_count, max_dist = kept.pop("args")
+    _check(t_count is None and max_dist is None and shard.shape[0]
+           == cfg.capacity.max_submap_kf * cfg.capacity.max_ds_points // D,
+           f"sharded D={D} rank {my}: the shard search got {shard.shape[0]} "
+           f"rows, t_count {t_count}, max_dist {max_dist}")
+    _, ties, nn_err, _ = nn_check(f"sharded D={D} rank {my}", nk.nn1_fused,
+                                  q, shard, None, None)
+    out["nn"] = {"queries": q.shape[0], "rows": shard.shape[0],
+                 "sentinel_rows": int((shard == SENTINEL).all(dim=1).sum()),
+                 "ties": ties, "max_abs_err": nn_err}
+    del q, shard
+
+    # (b) the sharded TSDF over the steps' clouds; beside each fusion, the
+    # same masks through the plain path from a copy of the same shard.
+    # Every rank owns the default one-device capacity: a shard allocates
+    # from the global count (JAX's counters), and past max_blocks / D in
+    # all it reuses slots that hold blocks, so two entries of one fusion
+    # can share a payload row (ROADMAP Queue 3), which kernel B's contract
+    # excludes
+    tcfg = TsdfConfig(max_blocks=D * TsdfConfig().max_blocks)
+    integ = make_sharded_integrate(tcfg, mesh)
+    st = init_sharded_tsdf(tcfg, mesh)
+    for fn in counters.values():
+        fn.launches = 0
+    t_fuse, same_dir, close, err, worst, n_max = 0.0, True, True, 0.0, 0, 0
+    local_deltas, global_deltas, peak = [], [], 0
+    for xyz, valid, origin in clouds:
+        pre = type(st)(*(t.clone() for t in st))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = integ(st, xyz, valid, origin)
+        torch.cuda.synchronize()
+        t_fuse += time.perf_counter() - t0
+        pos, sdf, w = tsdf_mod._ray_samples(tcfg, xyz, valid, origin)
+        keys, _ = tsdf_mod.sample_keys(pos, tcfg.voxel_size, w != 0.0)
+        mine = (keys != tsdf_mod.KEY_PAD) & ((keys % D) == my)
+        plain, r, stream = tsdf_mod.block_stream(
+            tcfg, pre, pos, sdf, torch.where(mine, w, 0.0))
+        block_accumulate_plain(plain.weight, plain.wsum, r.rows, r.starts,
+                               r.cnts, *stream, tcfg.max_weight)
+        same_dir &= all(bool(torch.equal(getattr(st, f), getattr(plain, f)))
+                        for f in ("dir_keys", "dir_slots"))
+        # this rank's change to the global counters (the plain path) and
+        # the summed change every rank applied
+        for deltas, x in ((local_deltas, plain), (global_deltas, st)):
+            deltas.append((int(x.num_blocks - pre.num_blocks),
+                           int(x.dropped - pre.dropped)))
+        peak = max(peak, int(st.num_blocks))
+        ok, ratio, e, n = _accum_within_bound(pre, st, plain, r, stream)
+        close &= ok
+        err, worst, n_max = max(err, e), max(worst, ratio), max(n_max, n)
+        del pre, plain
+    lb = launches()
+    merged = gather_sharded_state(tcfg, st, mesh)
+    out["tsdf"] = {"held": int((st.dir_keys != tsdf_mod.KEY_PAD).sum()),
+                   "counts": (int(st.num_blocks), int(st.dropped)),
+                   "local_deltas": local_deltas,
+                   "global_deltas": global_deltas, "peak": peak,
+                   "capacity": st.dir_keys.shape[0],
+                   "merged_blocks": int(merged.num_blocks),
+                   "merged_keys": int((merged.dir_keys
+                                       != tsdf_mod.KEY_PAD).sum()),
+                   "same_dir": same_dir, "max_abs_err": err, "close": close,
+                   "bound_ratio": worst, "n_max": n_max,
+                   "B": lb[B], "A": lb[A], "fuse_s": t_fuse}
+    del st, merged, clouds
+
+    # (c) the pose graph: CG on 2,048 nodes, dense on 64
+    ba = {}
+    for name, K, kw in (("cg", 2048, dict(iters=3, method="cg",
+                                          cg_iters=50)),
+                        ("dense", 64, dict(iters=10, method="dense"))):
+        g = _ba_graph(pg, K, mesh.device)
+        ref = pg.optimize(g, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sharded_optimize(mesh, g, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        dp = float(torch.linalg.vector_norm(got.node_p - ref.node_p,
+                                            dim=-1).max())
+        dots = torch.abs(torch.sum(got.node_q * ref.node_q, -1))
+        ba[name] = {"dp": dp, "dot": float((1.0 - dots).abs().max()),
+                    "moved": float(torch.linalg.vector_norm(
+                        got.node_p - g.node_p, dim=-1).max()),
+                    "s": dt, "node_p": got.node_p.cpu().numpy()}
+    out["ba"] = ba
+    return out
+
+
+def phase_sharded(sim, scans) -> dict:
+    """Phase 16: the sharded paths on D = 1 rank under NCCL and D = 2 and
+    4 ranks under gloo, every rank on the card (``parallel.mesh.launch``;
+    ``_sharded_rank``), over the first ``SHARDED_SCANS`` of phase 6's
+    scans at the main path's width. Every rank's trajectory must be rank
+    0's bitwise and every step within ``SHARDED_STEP_TOL`` of the
+    one-process step from the same state; A and B must launch on every
+    rank and agree with its plain version on a shard search of every
+    rank; each rank's TSDF shard must equal the plain path's on the same
+    masks, and the global block counters the sum of the ranks' changes;
+    the pose-graph solves must agree with the one-process solves;
+    the bytes handed to ``all_reduce`` per align must be the traffic
+    model's. Returns the launches of A and B per rank and world."""
+    from noetic_slam_tpu_torch.parallel import mesh as pmesh
+    from noetic_slam_tpu_torch.parallel.registration import (
+        collective_traffic_per_align,
+    )
+    from noetic_slam_tpu_torch.utils import synthetic
+
+    t_phase = time.perf_counter()
+    cfg = _main_cfg()
+    nq = cfg.capacity.max_ds_points
+    last = scans[SHARDED_SCANS - 1]
+    n_imu = int(np.searchsorted(sim.imu_stamps, last[0] + last[2].max()
+                                + 0.02, side="right"))
+    inp = {"scans": scans[:SHARDED_SCANS],
+           "imu": (sim.imu_stamps[:n_imu], sim.imu_ang[:n_imu],
+                   sim.imu_acc[:n_imu])}
+    out = {}
+    ref_traj = None
+    for world, backend in SHARDED_WORLDS:
+        t0 = time.perf_counter()
+        ranks = pmesh.launch(_sharded_rank, world, inp, backend=backend,
+                             timeout=RANK_TIMEOUT)
+        wall = time.perf_counter() - t0
+        tag = f"D={world} {backend}"
+        r0 = ranks[0]
+        traj = r0["odometry"]["traj"]
+        _check(len(traj) == SHARDED_SCANS and np.isfinite(traj).all(),
+               f"sharded {tag}: {len(traj)} poses")
+        for r in ranks[1:]:
+            _check(np.array_equal(r["odometry"]["traj"], traj),
+                   f"sharded {tag}: rank {r['rank']}'s poses differ from "
+                   f"rank 0's")
+            _check(r["odometry"]["syncs"] == r0["odometry"]["syncs"],
+                   f"sharded {tag}: rank {r['rank']} read the host "
+                   f"{r['odometry']['syncs']} times, rank 0 "
+                   f"{r0['odometry']['syncs']}")
+        ate = synthetic.ate_rmse(traj[:, 0], traj[:, 1:4], sim.gt_stamps,
+                                 sim.gt_pos)
+        gap = max(max(r["odometry"]["gaps"]) for r in ranks)
+        _check(gap < SHARDED_STEP_TOL, f"sharded {tag}: a step {gap:.4f} m "
+               f"from the one-process step")
+        _check(ate < GRID_ATE, f"sharded {tag}: ATE {ate:.4f} m")
+        for r in ranks:
+            o, t = r["odometry"], r["tsdf"]
+            _check(o["A"] > 0 and t["B"] == SHARDED_SCANS,
+                   f"sharded {tag}: rank {r['rank']} launched A {o['A']}, "
+                   f"B {t['B']} times")
+            _check(t["same_dir"] and t["close"],
+                   f"sharded {tag}: rank {r['rank']}'s TSDF shard differs "
+                   f"from the plain path's (directory {t['same_dir']}, "
+                   f"max |err| {t['max_abs_err']:.3e}, "
+                   f"{t['bound_ratio']:.3f} of the summation bound)")
+            for calls_bytes in o["aligns"]:
+                nbytes, calls = calls_bytes
+                iters = calls // 4
+                model = collective_traffic_per_align(cfg.gicp, nq, world,
+                                                     iters)
+                _check(calls == 4 * iters and nbytes == iters * 4
+                       * model["per_relinearize_reduce_elements"],
+                       f"sharded {tag}: an align handed {nbytes} bytes in "
+                       f"{calls} all_reduces, the model "
+                       f"{model['per_relinearize_reduce_elements'] * 4} "
+                       f"bytes per iteration")
+            for name, b in r["ba"].items():
+                _check(b["dp"] < BA_TOL and b["dot"] < 1e-5,
+                       f"sharded {tag}: {name} solve {b['dp']:.2e} m from "
+                       f"the one-process solve")
+                _check(np.array_equal(b["node_p"],
+                                      r0["ba"][name]["node_p"]),
+                       f"sharded {tag}: rank {r['rank']}'s {name} solve "
+                       f"differs from rank 0's")
+        counts = r0["tsdf"]["counts"]
+        held = [r["tsdf"]["held"] for r in ranks]
+        _check(all(r["tsdf"]["counts"] == counts for r in ranks)
+               and r0["tsdf"]["merged_blocks"] == counts[0]
+               == r0["tsdf"]["merged_keys"] == sum(held)
+               and r0["tsdf"]["peak"] <= r0["tsdf"]["capacity"],
+               f"sharded {tag}: blocks held {held}, gathered "
+               f"{r0['tsdf']['merged_keys']}, counters {counts}, the "
+               f"global count up to {r0['tsdf']['peak']} of a shard's "
+               f"{r0['tsdf']['capacity']} slots")
+        summed = [tuple(map(sum, zip(*f))) for f in
+                  zip(*(r["tsdf"]["local_deltas"] for r in ranks))]
+        _check(all(r["tsdf"]["global_deltas"] == summed for r in ranks),
+               f"sharded {tag}: the global block counters did not advance "
+               f"by the sum of the ranks' changes")
+        o = r0["odometry"]
+        its = [c // 4 for _, c in o["aligns"]]
+        per_iter = [b // max(c // 4, 1) for b, c in o["aligns"]]
+        model = collective_traffic_per_align(cfg.gicp, nq, world)
+        vs_one = ("" if ref_traj is None else
+                  f"; largest per-pose distance to D=1's run "
+                  f"{_pose_gap(traj, ref_traj):.4f} m")
+        print(f"[16 sharded] {tag} ({wall:.1f} s with the spawn): (a) "
+              f"{SHARDED_SCANS} scans x 32768 points, every rank's poses "
+              f"bitwise rank 0's; {o['steps_per_s']:.2f} steps/s (sharded "
+              f"step alone, synchronised); largest step gap to the "
+              f"one-process step {gap:.4f} m; ATE {ate:.4f} m{vs_one}; "
+              f"host syncs {o['syncs'] / SHARDED_SCANS:.2f}/scan; peak "
+              f"memory rank 0 {o['peak_gib']:.3f} GiB; {len(its)} aligns, "
+              f"{sum(its)} outer iterations; all_reduce bytes per "
+              f"iteration {sorted(set(per_iter))} = the model's "
+              f"{model['per_relinearize_reduce_elements'] * 4} (ring recv "
+              f"model {model['per_relinearize_reduce_recv_bytes']} + "
+              f"{model['per_relinearize_psum_bytes']} B)", flush=True)
+        nn = [r["nn"] for r in ranks]
+        print(f"[16 sharded] {tag}: (a) kernel A against its plain version "
+              f"on each rank's first shard search of align "
+              f"{SHARDED_KEEP_ALIGN} (uncapped, no target count): "
+              f"{nn[0]['queries']} queries x {nn[0]['rows']} rows a rank, "
+              f"sentinel rows {[x['sentinel_rows'] for x in nn]}, idx ties "
+              f"{[x['ties'] for x in nn]}, max |dsqd| "
+              f"{max(x['max_abs_err'] for x in nn):.3e}", flush=True)
+        t = [r["tsdf"] for r in ranks]
+        print(f"[16 sharded] {tag}: (b) TSDF (TsdfConfig, "
+              f"{r0['tsdf']['capacity']} blocks a rank): blocks held "
+              f"per rank {held}, gathered {r0['tsdf']['merged_keys']} (the "
+              f"global count never above a shard's slots); "
+              f"global counters num_blocks {counts[0]}, dropped "
+              f"{counts[1]}, each fusion's change the sum of the ranks'; "
+              f"kernel "
+              f"B vs the plain path on the same masks, fusion by fusion: "
+              f"max |err| {max(x['max_abs_err'] for x in t):.3e}, "
+              f"{max(x['bound_ratio'] for x in t):.3f} of the summation "
+              f"bound (up to {max(x['n_max'] for x in t)} samples a voxel), "
+              f"directories equal; "
+              f"fuse {t[0]['fuse_s']:.2f} s for {SHARDED_SCANS} scans",
+              flush=True)
+        ba = r0["ba"]
+        print(f"[16 sharded] {tag}: (c) pose graph: cg 2048 nodes "
+              f"{ba['cg']['s']:.2f} s, max |dp| to one process "
+              f"{max(r['ba']['cg']['dp'] for r in ranks):.2e} m (nodes "
+              f"moved up to {ba['cg']['moved']:.3f} m); dense 64 nodes "
+              f"{ba['dense']['s']:.2f} s, max |dp| "
+              f"{max(r['ba']['dense']['dp'] for r in ranks):.2e} m",
+              flush=True)
+        print(f"[16 sharded] {tag}: launches per rank: A "
+              f"{[r['odometry']['A'] for r in ranks]}, B "
+              f"{[r['tsdf']['B'] for r in ranks]}", flush=True)
+        out[f"D{world}"] = {
+            "nn1_fused": [r["odometry"]["A"] for r in ranks],
+            "block_accumulate": [r["tsdf"]["B"] for r in ranks],
+            "logodds_accumulate": [0] * world}
+        if ref_traj is None:
+            ref_traj = traj
+    print(f"[16 sharded] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scans", type=int, default=60,
@@ -2212,6 +2769,8 @@ def main(argv=None) -> int:
         cli_launches, capture = phase_cli(sim, scans, root)
         live_launches = phase_live(root, capture)
         batch_launches = phase_batch(root)
+        grid_launches = phase_grid(sim, scans, args.scans, tsdf_traj, root)
+    sharded_launches = phase_sharded(sim, scans)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         _check(k["launches"] > 0, f"{k['name']} never launched on its path")
@@ -2219,7 +2778,9 @@ def main(argv=None) -> int:
         k["closure_launches"] = closure_launches[k["name"]]
         for key, runs in (("cli_launches", cli_launches),
                           ("live_launches", live_launches),
-                          ("batch_launches", batch_launches)):
+                          ("batch_launches", batch_launches),
+                          ("grid_launches", grid_launches),
+                          ("sharded_launches", sharded_launches)):
             k[key] = {run: n[k["name"]] for run, n in runs.items()}
         k.update(extra.get(k["name"], {}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2229,7 +2790,7 @@ def main(argv=None) -> int:
         {**{key: k[key] for key in keys},
          **{key: v for key, v in k.items()
             if key.startswith(("main_shape", "system", "closure", "cli",
-                               "live", "batch"))}}
+                               "live", "batch", "grid", "sharded"))}}
         for k in kernels]}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

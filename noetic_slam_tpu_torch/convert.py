@@ -4,8 +4,7 @@ The odometry and map states (TSDF or occupancy) are this system's
 "weights": the tests run JAX steps to a mid-run state, fetch it as numpy
 arrays, carry it into the port with ``*_state_from_numpy``, and run one
 step of both implementations from the same state. ``*_to_numpy`` is
-the reverse. Fields are matched by name; JAX fields the port does not
-carry (the grid-NN index) are ignored. The pose graph carries across the
+the reverse. Fields are matched by name. The pose graph carries across the
 same way; the keyframe archive and the descriptor store carry across
 through their numpy ``pack`` / ``unpack``.
 """

@@ -13,8 +13,12 @@ runs the same computation eagerly on fixed-shape tensors:
   ``HostSyncs`` passed to ``make_odometry_step``;
 - source covariances come from ``cov_engine``: the radius-weighted
   moments (``"radius"``) or each point's k nearest neighbours
-  (``"knn"``). The grid NN engine (``nn_engine="grid"``) is not ported
-  yet, so ``OdomState`` carries no grid index.
+  (``"knn"``, from a grid over the scan when ``nn_engine="grid"``);
+- correspondences come from kernel A (``nn_engine="brute"``) or from the
+  grid index over the submap that ``OdomState`` carries
+  (``nn_engine="grid"``, ``ops.gridnn``), rebuilt with every submap;
+- registration is ``align_fn`` (default ``ops.gicp.gicp_align``); the
+  sharded path passes ``parallel.registration.make_sharded_align``.
 
 Times in ``StepInput``/state are float32 seconds relative to the current
 scan's header stamp, as in the JAX module.
@@ -33,6 +37,7 @@ from noetic_slam_tpu_torch.config import DlioConfig
 from noetic_slam_tpu_torch.models import occupancy as occ_mod
 from noetic_slam_tpu_torch.models import tsdf as tsdf_mod
 from noetic_slam_tpu_torch.ops import gicp as gicp_ops
+from noetic_slam_tpu_torch.ops import gridnn
 from noetic_slam_tpu_torch.ops import imu as imu_ops
 from noetic_slam_tpu_torch.ops.deskew import deskew_points, transform_cloud
 from noetic_slam_tpu_torch.ops.gicp import HostSyncs
@@ -64,7 +69,7 @@ Tensor = torch.Tensor
 
 class OdomState(NamedTuple):
     """The odometry state (device tensors, fixed shapes); the fields and
-    their meaning are the JAX ``OdomState``'s, without the grid index."""
+    their meaning are the JAX ``OdomState``'s."""
     q: Tensor            # (4,) observer orientation wxyz
     p: Tensor            # (3,)
     v: Tensor            # (3,)
@@ -96,6 +101,10 @@ class OdomState(NamedTuple):
     submap_mask: Tensor  # (K,) bool current keyframe selection
     submap_count: Tensor # () int32 valid points (compacted to the front)
     submap_overflow: Tensor  # () int32 cumulative dropped selections
+    grid_xyz: Tensor     # (S, 3) submap points sorted by grid cell key
+    grid_keys: Tensor    # (S,) int32 sorted cell keys
+    grid_order: Tensor   # (S,) int32 submap index of each sorted point
+    grid_origin: Tensor  # (3,) cell-space origin
     spaciousness: Tensor # () adaptive-parameter LPF states
     density: Tensor      # ()
     source_density: Tensor   # ()
@@ -232,6 +241,10 @@ def init_state(cfg: DlioConfig, device=None, q0=None, ba0=None, bg0=None
         submap_cov=torch.zeros((S, 6), **f32),
         submap_mask=torch.zeros((K,), **b),
         submap_count=zero(**i32), submap_overflow=zero(**i32),
+        grid_xyz=torch.full((S, 3), SENTINEL, **f32),
+        grid_keys=torch.full((S,), torch.iinfo(torch.int32).max, **i32),
+        grid_order=torch.zeros((S,), **i32),
+        grid_origin=torch.zeros((3,), **f32),
         spaciousness=zero(**f32), density=zero(**f32),
         source_density=zero(**f32),
         keyframe_thresh_dist=torch.tensor(cfg.keyframe.thresh_dist, **f32),
@@ -509,14 +522,24 @@ def gather_submap(cfg: DlioConfig, state: OdomState, mask: Tensor):
 # The per-scan step
 # ---------------------------------------------------------------------------
 
-def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None):
+def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
+                       align_fn=None):
     """The odometry step ``step(state, inp) -> (state, out)`` for ``cfg``.
-    Host reads that decide control flow are counted in ``syncs``."""
-    if cfg.gicp.nn_engine != "brute":
-        raise NotImplementedError(
-            "the torch port runs nn_engine='brute' only (ROADMAP Queue 1 "
-            "item 7: the grid NN engine)")
+    Host reads that decide control flow are counted in ``syncs``.
+
+    ``align_fn(src_xyz, src_valid, src_cov, tgt_xyz, tgt_cov, cfg,
+    max_corr_dist=, target_grid=, target_count=, syncs=) -> AlignResult``
+    defaults to the one-device ``gicp_align``; the distributed path passes
+    ``parallel.registration.make_sharded_align(mesh)``."""
+    if cfg.gicp.nn_engine not in ("brute", "grid"):
+        raise ValueError(f"nn_engine={cfg.gicp.nn_engine!r}: expected "
+                         "'brute' or 'grid'")
     syncs = HostSyncs() if syncs is None else syncs
+    align_fn = gicp_ops.gicp_align if align_fn is None else align_fn
+    use_grid = cfg.gicp.nn_engine == "grid"
+    # the cell covers the largest adaptive correspondence radius
+    # (2 * max_corr_dist)
+    grid_cell = 2.0 * cfg.gicp.max_corr_dist
     cap = cfg.capacity
     R_ext = np.asarray(cfg.extrinsics.baselink2lidar_R,
                        np.float32).reshape(3, 3)
@@ -595,7 +618,8 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None):
                     ds_xyz, ds_valid, cfg.gicp.cov_radius)
             else:
                 src_cov, src_density = gicp_ops.plane_covariances(
-                    ds_xyz, ds_valid, cfg.gicp.k_correspondences)
+                    ds_xyz, ds_valid, cfg.gicp.k_correspondences,
+                    use_grid=use_grid, cell=4.0 * cfg.preproc.voxel_res)
 
         # ---- observer IMU-rate propagation over the inter-scan interval ------
         with record_function("odometry.propagate"):
@@ -631,10 +655,15 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None):
         def with_submap(st: OdomState, mask: Tensor) -> OdomState:
             sm_xyz, sm_valid, sm_cov, sm_count, sm_over = gather_submap(
                 cfg, st, mask)
-            return st._replace(
+            st = st._replace(
                 submap_xyz=sm_xyz, submap_valid=sm_valid, submap_cov=sm_cov,
                 submap_mask=mask, submap_count=sm_count,
                 submap_overflow=st.submap_overflow + sm_over)
+            if use_grid:
+                g = gridnn.build_grid(sm_xyz, sm_valid, grid_cell)
+                st = st._replace(grid_xyz=g.xyz, grid_keys=g.keys,
+                                 grid_order=g.order, grid_origin=g.origin)
+            return st
 
         def bootstrap(st: OdomState):
             with record_function("odometry.keyframe_submap"):
@@ -645,9 +674,13 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None):
 
         def register(st: OdomState):
             with record_function("odometry.gicp"):
-                res = gicp_ops.gicp_align(
+                grid = (gridnn.Grid(st.grid_xyz, st.grid_keys,
+                                    st.grid_order, st.grid_origin,
+                                    torch.full((), grid_cell, **f32))
+                        if use_grid else None)
+                res = align_fn(
                     ds_xyz, ds_valid, src_cov, st.submap_xyz, st.submap_cov,
-                    cfg.gicp, max_corr_dist=max_corr,
+                    cfg.gicp, max_corr_dist=max_corr, target_grid=grid,
                     target_count=st.submap_count, syncs=syncs)
             with record_function("odometry.keyframe_submap"):
                 # degenerate-registration gate: fall back to the IMU prior
@@ -744,12 +777,13 @@ def make_map_fuse(cfg: DlioConfig):
     return fuse
 
 
-def make_slam_step(cfg: DlioConfig, syncs: HostSyncs | None = None):
+def make_slam_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
+                   align_fn=None):
     """Odometry + dense-map fusion (``make_map_fuse``):
     ``step((odom_state, map_state), inp) -> ((odom_state, map_state), out)``.
     """
     fuse = make_map_fuse(cfg)
-    odo = make_odometry_step(cfg, syncs)
+    odo = make_odometry_step(cfg, syncs, align_fn)
 
     def step(carry, inp: StepInput):
         odom_state, map_state = carry

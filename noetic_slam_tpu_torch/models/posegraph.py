@@ -293,11 +293,17 @@ def _assemble(g: PoseGraph, K: int):
     return H.reshape(6 * K, 6 * K), b
 
 
-def _gn_system_matfree(g: PoseGraph, K: int, damping: float):
+def _gn_system_matfree(g: PoseGraph, K: int, damping: float, reduce=None):
     """Matrix-free normal system for CG: (matvec, b, apply_prec), where
     matvec(x) = (H + diag) x is computed edge-wise (gather the two 6-blocks
     of x per edge, apply the edge's 12x12 block, scatter-add back) and the
-    preconditioner is the per-node 6x6 block Jacobi from the same pass."""
+    preconditioner is the per-node 6x6 block Jacobi from the same pass.
+
+    ``reduce`` (JAX's ``psum_axis``): where ``g``'s edges are this rank's
+    shard, a callable summing a node accumulator over the ranks; it is
+    applied to b, to the matvec's edge sum and to the preconditioner
+    blocks, before the node-diagonal terms (replicated) are added."""
+    reduce = (lambda x: x) if reduce is None else reduce
     ei, ej, Hblk, bblk = _edge_normal_blocks(g)
     dev = Hblk.device
     active = torch.arange(K, device=dev) < g.n_nodes
@@ -307,6 +313,7 @@ def _gn_system_matfree(g: PoseGraph, K: int, damping: float):
     b = torch.zeros((K, 6), dtype=torch.float32, device=dev)
     b.index_add_(0, ei, bblk[:, :6])
     b.index_add_(0, ej, bblk[:, 6:])
+    b = reduce(b)
 
     def matvec(x):
         ye = torch.einsum("eij,ej->ei", Hblk, torch.cat([x[ei], x[ej]],
@@ -314,12 +321,12 @@ def _gn_system_matfree(g: PoseGraph, K: int, damping: float):
         y = torch.zeros_like(x)
         y.index_add_(0, ei, ye[:, :6])
         y.index_add_(0, ej, ye[:, 6:])
-        return y + diag_all[:, None] * x
+        return reduce(y) + diag_all[:, None] * x
 
     Pblk = torch.zeros((K, 6, 6), dtype=torch.float32, device=dev)
     Pblk.index_add_(0, ei, Hblk[:, :6, :6])
     Pblk.index_add_(0, ej, Hblk[:, 6:, 6:])
-    Pblk = Pblk + diag_all[:, None, None] * torch.eye(6, device=dev)
+    Pblk = reduce(Pblk) + diag_all[:, None, None] * torch.eye(6, device=dev)
     Pinv = torch.linalg.inv_ex(Pblk)[0]
 
     def apply_prec(x):
@@ -357,14 +364,16 @@ def _pcg(matvec, b: Tensor, apply_prec, iters: int, tol: float = 1e-8
 
 def optimize(g: PoseGraph, iters: int = 10, k_static: int | None = None,
              damping: float = 1e-6, method: str = "auto",
-             cg_iters: int = 100) -> PoseGraph:
+             cg_iters: int = 100, reduce=None) -> PoseGraph:
     """Gauss-Newton over all node poses; node 0 gauge-fixed by a prior.
 
     ``method``: "dense" builds H (6K, 6K) and LU-solves it; "cg" solves each
     step by matrix-free block-Jacobi PCG (``cg_iters`` iterations); "auto"
     takes CG above 192 nodes. ``k_static``: solve over the first k_static
     node slots only (>= n_nodes; every edge must reference nodes below
-    it)."""
+    it). ``reduce``: where ``g``'s edges are this rank's shard, sums the
+    edge terms (dense H and b; ``_gn_system_matfree``'s accumulators) over
+    the ranks (``parallel.bundle_adjustment``)."""
     K = g.node_q.shape[0] if k_static is None else k_static
     if method == "auto":
         method = "cg" if K > 192 else "dense"
@@ -373,13 +382,16 @@ def optimize(g: PoseGraph, iters: int = 10, k_static: int | None = None,
     for _ in range(iters):
         if method == "dense":
             H, b = _assemble(g, K)
+            if reduce is not None:
+                H, b = reduce(H), reduce(b)
             active = (torch.arange(6 * K, device=dev) // 6) < g.n_nodes
             diag = torch.where(active, damping, 1.0)
             diag[:6] = 1e6
             dx = torch.linalg.solve_ex(H + torch.diag(diag),
                                        -b)[0].reshape(K, 6)
         else:
-            matvec, b, apply_prec = _gn_system_matfree(g, K, damping)
+            matvec, b, apply_prec = _gn_system_matfree(g, K, damping,
+                                                       reduce)
             dx = _pcg(matvec, -b, apply_prec, cg_iters)
         dw = torch.where(ok, dx[:, :3], 0.0)
         dv = torch.where(ok, dx[:, 3:], 0.0)

@@ -13,9 +13,11 @@ The two ``lax.while_loop``s of ``gicp_align`` become:
   once per iteration (each iteration costs an NN search anyway). Every
   such read is counted in ``syncs`` (see ``HostSyncs``).
 
-``plane_covariances`` is ported for the brute-force kNN only (the step's
-``cov_engine="knn"`` and the keyframe archive's closure path); its grid-NN
-branch (``use_grid=True``) waits with ``ops/gridnn.py``.
+With a ``target_grid`` (``ops.gridnn.Grid`` over the target, the step's
+``nn_engine="grid"``) correspondences come from the grid search and
+kernel A is not launched; a miss gets idx 0 and sqd 1e30.
+``plane_covariances(use_grid=True)`` takes each point's neighbours from a
+grid over the cloud itself.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from noetic_slam_tpu_torch.config import GicpConfig
-from noetic_slam_tpu_torch.ops import neighbors
+from noetic_slam_tpu_torch.ops import gridnn, neighbors
 from noetic_slam_tpu_torch.ops.pointcloud import const
 from noetic_slam_tpu_torch.utils.geometry import (
     cross,
@@ -36,6 +38,8 @@ from noetic_slam_tpu_torch.utils.geometry import (
 )
 
 Tensor = torch.Tensor
+
+MAX_PER_CELL = 64   # grid candidates a cell (the JAX functions' default)
 
 
 class HostSyncs:
@@ -189,17 +193,28 @@ def radius_covariances(xyz: Tensor, valid: Tensor, radius: float = 0.5,
     return mat_to_sym6(reg), density
 
 
-def plane_covariances(xyz: Tensor, valid: Tensor, k: int = 16):
+def plane_covariances(xyz: Tensor, valid: Tensor, k: int = 16,
+                      use_grid: bool = False, cell: float = 1.0):
     """Per-point plane-regularised covariances from the k nearest
     neighbours within the same cloud (self included): the neighbour
     covariance's smallest eigenvector n gives I - (1 - 1e-3) n n^T; the
     density is the mean over valid points of sum(sqd[1:]) /
-    ((k-1)(k+2)/2). Brute-force kNN (``neighbors.knn``), the JAX
-    function's ``use_grid=False`` branch.
+    ((k-1)(k+2)/2). Neighbours from the brute-force kNN
+    (``neighbors.knn``) or, with ``use_grid``, from a ``cell`` grid over
+    the cloud (``gridnn.grid_knn``), where a neighbour beyond the 27 cells
+    is replaced by the point itself and counts 0 in the density.
 
     Returns (covs (N, 6), density ())."""
-    idx, sqd = neighbors.knn(xyz, xyz, k)
-    nb = xyz[idx]                                          # (N, k, 3)
+    if use_grid:
+        grid = gridnn.build_grid(xyz, valid, cell)
+        idx, sqd = gridnn.grid_knn(xyz, grid, k, max_per_cell=MAX_PER_CELL)
+        found = torch.isfinite(sqd)
+        idx = torch.where(found, idx, 0).long()
+        nb = torch.where(found[..., None], xyz[idx], xyz[:, None, :])
+        sqd = torch.where(found, sqd, 0.0)
+    else:
+        idx, sqd = neighbors.knn(xyz, xyz, k)
+        nb = xyz[idx]                                      # (N, k, 3)
     d = nb - torch.mean(nb, dim=1, keepdim=True)
     cov = torch.einsum("nki,nkj->nij", d, d) / k
     n = _smallest_eigvec_sym3(cov)
@@ -231,13 +246,23 @@ def update_correspondences(src_xyz: Tensor, src_valid: Tensor,
                            src_cov6: Tensor, tgt_xyz: Tensor,
                            tgt_cov6: Tensor, T: Tensor,
                            max_corr_dist: Tensor,
-                           target_count: Tensor | None = None
+                           target_count: Tensor | None = None,
+                           target_grid: gridnn.Grid | None = None
                            ) -> Correspondences:
     """NN correspondences (capped at the correspondence distance) and
-    their Mahalanobis weights at transform T (4x4)."""
+    their Mahalanobis weights at transform T (4x4): kernel A, or the grid
+    search when ``target_grid`` (a grid over ``tgt_xyz`` whose cell is at
+    least the correspondence distance) is given."""
     transed = _transform(src_xyz, T)
-    idx, sqd = neighbors.nn1(transed, tgt_xyz, target_count,
-                             max_dist=max_corr_dist)
+    if target_grid is not None:
+        idx, sqd = gridnn.grid_nn1(transed, target_grid,
+                                   max_per_cell=MAX_PER_CELL)
+        hit = torch.isfinite(sqd)
+        idx = torch.where(hit, idx, 0)
+        sqd = torch.where(hit, sqd, 1e30)
+    else:
+        idx, sqd = neighbors.nn1(transed, tgt_xyz, target_count,
+                                 max_dist=max_corr_dist)
     idx = idx.long()
     accept = src_valid & (sqd < max_corr_dist * max_corr_dist)
     R = T[:3, :3]
@@ -345,9 +370,12 @@ def gicp_align(src_xyz: Tensor, src_valid: Tensor, src_cov6: Tensor,
                tgt_xyz: Tensor, tgt_cov6: Tensor, cfg: GicpConfig,
                max_corr_dist=None, guess: Tensor | None = None,
                target_count: Tensor | None = None,
-               syncs: HostSyncs | None = None) -> AlignResult:
+               syncs: HostSyncs | None = None,
+               target_grid: gridnn.Grid | None = None) -> AlignResult:
     """Full GICP alignment: LM over SE(3) with a correspondence refresh per
-    outer iteration (NanoGICP computeTransformation + step_lm)."""
+    outer iteration (NanoGICP computeTransformation + step_lm);
+    correspondences from ``target_grid`` when given
+    (``update_correspondences``)."""
     dev, dtype = src_xyz.device, src_xyz.dtype
     syncs = HostSyncs() if syncs is None else syncs
     x = (torch.eye(4, dtype=dtype, device=dev) if guess is None
@@ -362,7 +390,8 @@ def gicp_align(src_xyz: Tensor, src_valid: Tensor, src_cov6: Tensor,
     iters = 0
     while iters < cfg.max_iterations:
         corr = update_correspondences(src_xyz, src_valid, src_cov6, tgt_xyz,
-                                      tgt_cov6, x, mcd, target_count)
+                                      tgt_cov6, x, mcd, target_count,
+                                      target_grid)
         H, b, y0 = linearize(src_xyz, tgt_xyz, corr, x)
         accepted, x, lam, delta, err = _inner_lm(
             cfg, src_xyz, tgt_xyz, corr, H, b, y0, x, lam)

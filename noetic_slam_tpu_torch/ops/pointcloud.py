@@ -142,6 +142,12 @@ def voxel_downsample(xyz: Tensor, valid: Tensor, res: float,
     voxel keys relative to the cloud minimum, sort, segment mean.
     Segments beyond ``out_capacity`` are dropped.
 
+    Deterministic on the card as on the CPU: the sorted keys make each
+    voxel a contiguous run, and ``segment_reduce`` sums each run in index
+    order (one thread a run and coordinate on the card; the CPU adds in
+    the same order, as ``index_add_`` does there). A scatter-add would sum
+    in an order that changes from run to run on the card.
+
     Returns (xyz_ds (out_capacity, 3), valid_ds, count)."""
     pmin = _masked_min(xyz, valid)
     origin = torch.floor(pmin / res)
@@ -157,15 +163,18 @@ def voxel_downsample(xyz: Tensor, valid: Tensor, res: float,
     seg = torch.cumsum(first, 0) - 1
     nseg = first.sum()
 
+    # runs past the capacity and the invalid tail (sorted last) form one
+    # dump run at index out_capacity
     seg_clip = torch.where(valid_s & (seg < out_capacity), seg, out_capacity)
+    # (integer adds: exact in any order; bincount would read its size
+    # on the host)
+    lengths = torch.zeros((out_capacity + 1,), dtype=torch.int64,
+                          device=xyz.device).index_add_(
+        0, seg_clip, torch.ones_like(seg_clip))
     w = valid_s.to(xyz.dtype)
-    sums = torch.zeros((out_capacity + 1, 3), dtype=xyz.dtype,
-                       device=xyz.device)
-    sums.index_add_(0, seg_clip, xyz_s * w[:, None])
-    cnts = torch.zeros((out_capacity + 1,), dtype=xyz.dtype,
-                       device=xyz.device)
-    cnts.index_add_(0, seg_clip, w)
-    sums, cnts = sums[:out_capacity], cnts[:out_capacity]
+    sums = torch.segment_reduce(xyz_s * w[:, None], "sum", lengths=lengths,
+                                unsafe=True)[:out_capacity]
+    cnts = lengths[:out_capacity].to(xyz.dtype)
 
     n_out = torch.clamp(nseg, max=out_capacity)
     slot = torch.arange(out_capacity, device=xyz.device)

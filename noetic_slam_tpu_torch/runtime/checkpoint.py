@@ -7,11 +7,8 @@ either package loads in the other: one compressed ``.npz`` with keys
 ``tsdf/logodds`` key marks the occupancy backend), ``graph/<field>``,
 ``host/json`` (the host bookkeeping as UTF-8 JSON bytes) and
 ``extra/<name>`` (host arrays such as the keyframe archive). Fields are
-matched by name: a JAX file's fields the port does not carry (the grid-NN
-index of ``nn_engine="grid"``) are skipped on load, and the port writes
-them init-shaped (an empty grid, as JAX's ``init_state`` makes it), since
-JAX's ``SlamSystem.load`` needs every field. Tensors load onto the
-caller's device.
+matched by name, the grid-NN index of ``nn_engine="grid"`` among them.
+Tensors load onto the caller's device.
 """
 
 from __future__ import annotations
@@ -60,25 +57,12 @@ def _unpack(prefix: str, cls, data, device, defaults=None
     return cls(**fields)
 
 
-def _empty_grid(submap_rows: int, prefix: str = "odom") -> dict:
-    """The JAX ``OdomState``'s grid-NN index fields as its ``init_state``
-    makes them (the port keeps no grid index), under ``prefix``."""
-    S = submap_rows
-    return {f"{prefix}/grid_xyz": np.full((S, 3), 1e6, np.float32),
-            f"{prefix}/grid_keys": np.full((S,), np.iinfo(np.int32).max,
-                                           np.int32),
-            f"{prefix}/grid_order": np.zeros((S,), np.int32),
-            f"{prefix}/grid_origin": np.zeros((3,), np.float32)}
-
-
 def save_checkpoint(path: str, odom_state: OdomState, tsdf_state=None,
                     graph: PoseGraph | None = None, host: dict | None = None,
                     arrays: dict | None = None) -> None:
     """``arrays``: extra named host arrays saved under ``extra/<name>``."""
     out: dict = {}
     _pack("odom", odom_state, out)
-    if odom_state is not None:
-        out.update(_empty_grid(odom_state.submap_xyz.shape[0]))
     _pack("tsdf", tsdf_state, out)
     _pack("graph", graph, out)
     if host:

@@ -34,7 +34,7 @@ from noetic_slam_tpu_torch.config import DlioConfig
 from noetic_slam_tpu_torch.models.odometry import OdomState, StepInput, init_state
 from noetic_slam_tpu_torch.ops.gicp import HostSyncs
 from noetic_slam_tpu_torch.parallel import batch as pbatch
-from noetic_slam_tpu_torch.runtime.checkpoint import _empty_grid, _pack, _unpack
+from noetic_slam_tpu_torch.runtime.checkpoint import _pack, _unpack
 from noetic_slam_tpu_torch.runtime.pipeline import NeedMoreImu, OdometryPipeline
 from noetic_slam_tpu_torch.utils.host import to_device
 
@@ -218,7 +218,6 @@ class MultiSequencePipeline:
             st = self.states[i] if self.states is not None else f.state
             if st is not None:
                 _pack(f"odom{i}", st, out)
-                out.update(_empty_grid(st.submap_xyz.shape[0], f"odom{i}"))
             seq_host.append({
                 "prev_header": f.prev_header,
                 "headers": f.headers,

@@ -53,13 +53,13 @@ class TrajectoryEntry:
 
 class OdometryPipeline:
     def __init__(self, cfg: DlioConfig | None = None, *, device=None,
-                 with_tsdf: bool = False):
+                 with_tsdf: bool = False, align_fn=None):
         self.cfg = cfg or DlioConfig()
         self.device = resolve_device(device)
         self.with_tsdf = with_tsdf
         self._syncs = HostSyncs()
         if with_tsdf:
-            self._step = make_slam_step(self.cfg, self._syncs)
+            self._step = make_slam_step(self.cfg, self._syncs, align_fn)
             # tsdf_state holds whichever dense map cfg.map_backend selects
             # (tsdf | occupancy); the JAX pipeline keeps the same name
             if self.cfg.map_backend == "occupancy":
@@ -68,7 +68,7 @@ class OdometryPipeline:
             else:
                 self.tsdf_state = init_tsdf(self.cfg.tsdf, self.device)
         else:
-            self._step = make_odometry_step(self.cfg, self._syncs)
+            self._step = make_odometry_step(self.cfg, self._syncs, align_fn)
             self.tsdf_state = None
         self.state: Optional[OdomState] = None
 

@@ -2,7 +2,8 @@
 imports nothing of that package). Each copy is held to its original: the
 config dataclasses field by field, the simulator's arrays, the MulRan
 reader's output, the writers' bytes, the pose extrapolator's poses, the
-stage timer's tables, the ring descriptors and the host geometry helpers."""
+stage timer's tables, the ring descriptors, the host geometry helpers and
+the sharded GICP's traffic model."""
 
 import dataclasses
 import os
@@ -195,3 +196,20 @@ def test_host_geometry_equal():
         np.testing.assert_array_equal(T, jgeom.make_se3_np(q, p))
         np.testing.assert_array_equal(tgeom.mat_to_quat_np(T[:3, :3]),
                                       jgeom.mat_to_quat_np(T[:3, :3]))
+
+
+@pytest.mark.parametrize("nq,ndev,iters", [(8192, 1, None), (8192, 2, None),
+                                           (8192, 4, 7), (1024, 8, 3),
+                                           (100, 3, 0)])
+def test_collective_traffic_per_align_equal(nq, ndev, iters):
+    """``parallel.registration.collective_traffic_per_align``, a pure
+    Python copy, gives the original's numbers."""
+    from noetic_slam_tpu.parallel import registration as jreg
+    from noetic_slam_tpu_torch.parallel import registration as treg
+
+    for kw in ({}, {"max_iterations": 5}):
+        j = jreg.collective_traffic_per_align(jparams.GicpConfig(**kw), nq,
+                                              ndev, iters)
+        t = treg.collective_traffic_per_align(tparams.GicpConfig(**kw), nq,
+                                              ndev, iters)
+        assert t == j

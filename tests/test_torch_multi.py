@@ -348,9 +348,9 @@ def test_jax_checkpoint_resumes_in_port(sims, jax_full, tmp_path):
 
 
 def test_port_checkpoint_resumes_in_jax(sims, full, tmp_path):
-    """The reverse: port ``save`` (with JAX's grid fields written
-    init-shaped) -> JAX ``load`` -> continue, within the replay tolerance
-    of the port's uninterrupted run."""
+    """The reverse: port ``save`` (the grid-index fields included, as
+    the state holds them) -> JAX ``load`` -> continue, within the replay
+    tolerance of the port's uninterrupted run."""
     mp = MultiSequencePipeline(_cfg(), n_seq=2, devices=TWO)
     feeds = [_feed(s) for s in sims]
     pull = _puller(mp, feeds)

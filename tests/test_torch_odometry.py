@@ -138,8 +138,11 @@ def test_registration_step_knn_covariances_matches_jax(replay):
 
 
 def test_grid_nn_engine_still_raises():
-    gicp = dataclasses.replace(small_cfg().gicp, nn_engine="grid")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """The step's ``nn_engine`` check still raises, now for an engine
+    neither package has: ``"grid"`` is ported (its steps are held to JAX
+    in tests/test_torch_gridnn.py)."""
+    gicp = dataclasses.replace(small_cfg().gicp, nn_engine="kdtree")
+    with pytest.raises(ValueError, match="nn_engine='kdtree'"):
         to.make_odometry_step(small_cfg().replace(gicp=gicp))
 
 

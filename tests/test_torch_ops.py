@@ -115,6 +115,31 @@ def test_voxel_downsample_matches_jax(rng, capacity):
     close(got[0], want[0], atol=1e-5)
 
 
+def test_voxel_downsample_is_repeatable(rng):
+    """Each voxel's points are summed in one fixed order (a run of the
+    sorted keys, ``segment_reduce``): repeated calls return the same bits,
+    and the sums are those of a sequential scatter-add in index order."""
+    xyz, _, valid = _cloud(rng)
+    x, v = to_torch(xyz), to_torch(valid)
+    a = tpc.voxel_downsample(x, v, 0.25, 300)
+    for _ in range(3):
+        b = tpc.voxel_downsample(x, v, 0.25, 300)
+        for p, q in zip(a, b):
+            assert torch.equal(p, q)
+    # the segment sums against index_add_ (in index order on the CPU)
+    key = torch.where(v, tpc.morton30(torch.clamp(
+        (torch.floor(x / 0.25) - torch.floor(tpc._masked_min(x, v) / 0.25)
+         ).to(torch.int32), 0, 1023)), tpc.INT32_MAX)
+    ks, order = torch.sort(key, stable=True)
+    first = torch.cat([torch.ones(1, dtype=torch.bool), ks[1:] != ks[:-1]])
+    seg = torch.cumsum(first & v[order], 0) - 1
+    seg = torch.where(v[order] & (seg < 300), seg, 300)
+    sums = torch.zeros(301, 3).index_add_(0, seg, x[order] * v[order, None])
+    cnts = torch.zeros(301).index_add_(0, seg, v[order].float())
+    want = sums[:300] / torch.clamp(cnts[:300], min=1.0)[:, None]
+    assert torch.equal(a[0][a[1]], want[a[1]])
+
+
 def test_deskew_and_transform_match_jax(rng):
     xyz, t, valid = _cloud(rng)
     js0 = jpc.make_scan(jnp.asarray(xyz), jnp.asarray(t), jnp.asarray(valid))
