@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``noetic_slam_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--scans 60] [--profile N]
+    python3 chip_smoke.py [--scans 40] [--profile N]
 
 Phases, each printing its own line:
 
@@ -53,7 +53,8 @@ Phases, each printing its own line:
    ESDF region of the occupancy map;
 9. the whole system: ``SlamSystem(pipelined=True)`` at bench.py:286-351's
    full width (8192 points, 4096 kept, 16,384 blocks and the archive's
-   second volume) over its 240-scan spiral, driven as bench.py drives it
+   second volume) over the first ``SYSTEM_SCANS`` of its 240-scan spiral
+   (phase 17 runs the whole spiral), driven as bench.py drives it
    (``warmup()``, batches of 8 through ``process_scans``,
    ``maybe_close_loop`` every third batch, the first 32 scans untimed),
    the counters set to 0 just before and read just after. It prints
@@ -123,7 +124,7 @@ Phases, each printing its own line:
 16. the sharded paths (``parallel``) on D = 1 rank under NCCL, then D = 2
    and 4 ranks under gloo, every rank on the one card
    (``parallel.mesh.launch``): (a) ``OdometryPipeline`` with
-   ``make_sharded_align`` over 20 of phase 6's scans at its width, every
+   ``make_sharded_align`` over 12 of phase 6's scans at its width, every
    rank's poses bitwise rank 0's and every step within 2 cm of the
    one-process step from the same state, steps/s, and the bytes each
    rank hands to ``all_reduce`` per align equal to
@@ -137,7 +138,19 @@ Phases, each printing its own line:
    (c) ``sharded_optimize`` with CG on a 2,048-node chain with one loop
    edge and dense on 64 nodes, within 1e-3 m of one-process ``optimize``.
    A and B must launch on every rank (``sharded_launches`` per rank in
-   the JSON line); a rank that fails or hangs ends the phase with an error.
+   the JSON line); a rank that fails or hangs ends the phase with an error;
+17. the port's benchmark, ``cli.main(["bench"])`` in this process at root
+   bench.py's full size (the K = 8 replay of 180 32,768-point scans, TSDF
+   fusion, the K = 1 online rate and latency, the fused step, the whole
+   ``SlamSystem`` over its 240-scan spiral, the roofline of kernel A at
+   8,192 x 65,536 and of the TSDF fusion, the MulRan fixture's ATE), the
+   counters set to 0 just before and read just after, every plain-version
+   call counted: its JSON line is printed, A and B must launch, no call may
+   reach a plain version, both ATEs must be < 0.05 m, ``submap_overflow``
+   and ``slam_system_lost_keyframes`` 0 (``bench_launches`` in the JSON
+   line). Then ten main-path scans of phase 6's sequence under
+   ``runtime.profiling.device_trace``: whether the profiler started, and
+   the kernels and device time its trace holds.
 
 Each kernel phase prints the kernel's time, its plain version's, the time
 of one PyTorch library call computing the same function (used nowhere in
@@ -1103,7 +1116,10 @@ def phase_map_products(tsdf_cfg, tsdf_state, tsdf_traj, occ_cfg, occ_state,
 # kept from their calls there (phase 11)
 # ---------------------------------------------------------------------------
 
-SYSTEM_SCANS = 240        # bench.py's whole-system sequence
+SYSTEM_SCANS = 128        # of bench.py's 240-scan whole-system sequence
+                          # (phase 17 runs all of it; the spiral's revisit
+                          # and closure come at ~200, so the closing call
+                          # is timed in phase 10)
 SYSTEM_K = 8              # scans a batch (bench.py's K)
 SYSTEM_UNTIMED = 32       # the first four batches, untimed as in bench.py
 
@@ -1856,7 +1872,7 @@ LIVE_ATE = 0.15          # m: tests/test_pcap_e2e.py:58's bound
 LIVE_DRAIN_S = 1.0       # s the receiver polls on after the last packet
                          # (ten empty 100 ms polls; the driver raises at 60)
 BATCH_LADDER = (1, 2, 4, 8)
-BATCH_SECONDS = 3.5      # s of scans per sequence (scripts/bench_batch.py
+BATCH_SECONDS = 2.0      # s of scans per sequence (scripts/bench_batch.py
                          # simulates 12 s: 120 scans)
 BATCH_ATE = 0.08         # m: tests/test_multi_pipeline.py:82's bound
 
@@ -2202,7 +2218,7 @@ def phase_batch(root: str) -> dict:
 # ---------------------------------------------------------------------------
 
 GRID_ATE = 0.05          # m: every grid run, as the main path
-SHARDED_SCANS = 20       # scans of phase 6's sequence through the sharded step
+SHARDED_SCANS = 12       # scans of phase 6's sequence through the sharded step
 SHARDED_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
 SHARDED_KEEP_ALIGN = 10  # kernel A is checked on this align's first search
 SHARDED_STEP_TOL = 0.02  # m: a sharded step against the one-process step
@@ -2720,10 +2736,117 @@ def phase_sharded(sim, scans) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The benchmark (phase 17)
+# ---------------------------------------------------------------------------
+
+BENCH_ATE = 0.05         # m: bench.py's ATEs, tests/test_odometry_e2e.py:53
+TRACE_SCANS = 10         # main-path scans under device_trace
+
+
+def _trace_device_time(logdir: str) -> tuple[int, float]:
+    """(kernel events, their summed duration in ms) of the one trace that
+    ``device_trace`` wrote into ``logdir``."""
+    import glob
+    import os
+
+    files = glob.glob(os.path.join(logdir, "*.json"))
+    _check(len(files) == 1, f"device_trace wrote {len(files)} traces")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return len(kernels), sum(float(e.get("dur", 0.0)) for e in kernels) / 1e3
+
+
+def phase_bench(cfg, sim, scans) -> dict:
+    """Phase 17: ``cli bench`` at full size in this process (counters set
+    to 0 just before, read just after, plain-version calls counted), its
+    JSON line checked; then TRACE_SCANS main-path scans under
+    ``device_trace``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from noetic_slam_tpu_torch import cli
+    from noetic_slam_tpu_torch.runtime.pipeline import OdometryPipeline
+    from noetic_slam_tpu_torch.runtime.profiling import device_trace
+
+    t_phase = time.perf_counter()
+    counters = _counters()
+    probes = _Probes()
+    buf = io.StringIO()
+    gc.collect()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    with probes, contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench"])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    _check(rc == 0 and len(lines) == 1, f"bench: exit {rc}, {len(lines)} "
+           "JSON lines")
+    print(f"[17 bench] {lines[0]}", flush=True)
+    r = json.loads(lines[0])
+    ex = r["extras"]
+    for key in ("ate_rmse_m_synthetic", "ate_rmse_m_mulran_fixture"):
+        _check(ex[key] is not None and ex[key] < BENCH_ATE,
+               f"bench: {key} {ex[key]} (limit {BENCH_ATE} m)")
+    _check(ex["submap_overflow"] == 0,
+           f"bench: submap_overflow {ex['submap_overflow']}")
+    _check(ex["slam_system_lost_keyframes"] == 0,
+           f"bench: {ex['slam_system_lost_keyframes']} keyframes lost")
+    _check(ex["backend"] == "torch-cuda", f"bench: backend {ex['backend']}")
+    _check(probes.plain_calls == 0,
+           f"bench: {probes.plain_calls} calls reached a plain version")
+    for name in ("nn1_fused", "block_accumulate"):
+        _check(launches[name] > 0, f"bench: {name} never launched")
+    print(f"[17 bench] {r['value']} scans/s (K=8), online "
+          f"{ex['online_scans_per_sec_k1']} scans/s (p50 "
+          f"{ex['online_latency_ms_p50']} / p95 {ex['online_latency_ms_p95']}"
+          f" ms), fused {ex['slam_fused_scans_per_sec']}, system "
+          f"{ex['slam_system_scans_per_sec']} ({ex['slam_system_closures']} "
+          f"closures, {ex['slam_system_raced_attempts']} raced), TSDF "
+          f"{ex['tsdf_integrations_per_sec']} integrations/s; ATE synthetic "
+          f"{ex['ate_rmse_m_synthetic']} m, MulRan "
+          f"{ex['ate_rmse_m_mulran_fixture']} m; host syncs/scan "
+          f"{ex['host_syncs_per_scan']}; {ex['device']}, "
+          f"{ex['power_limit_w']} W; launches {launches}; no plain-version "
+          f"call; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ten main-path scans under device_trace, after ten untraced ones
+    pipe = OdometryPipeline(cfg, with_tsdf=True)
+    feed = _feeder(pipe, sim)
+
+    def run(lo, hi):
+        for h, xyz, pt in scans[lo:hi]:
+            feed(h + pt.max() + 0.02)
+            pipe.process_scan(h, xyz, pt)
+
+    run(0, TRACE_SCANS)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        t0 = time.perf_counter()
+        with device_trace(d) as started:
+            run(TRACE_SCANS, 2 * TRACE_SCANS)
+        wall = time.perf_counter() - t0
+        _check(started, "device_trace: the profiler did not start")
+        n_kernels, dev_ms = _trace_device_time(d)
+    print(f"[17 bench] device_trace over {TRACE_SCANS} main-path scans: "
+          f"started {started}; the trace holds {n_kernels} kernel events, "
+          f"{dev_ms:.1f} ms of device time ({dev_ms / TRACE_SCANS:.2f} ms "
+          f"a scan) in {wall:.2f} s wall under the profiler; device time "
+          f"{'present' if dev_ms > 0 else 'absent'}", flush=True)
+    print(f"[17 bench] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scans", type=int, default=60,
-                    help="synthetic scans on the main path (default 60)")
+    ap.add_argument("--scans", type=int, default=40,
+                    help="synthetic scans on the main path (default 40)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="after each path's timed window, run N more "
                          "scans under torch.profiler and print where the "
@@ -2771,6 +2894,7 @@ def main(argv=None) -> int:
         batch_launches = phase_batch(root)
         grid_launches = phase_grid(sim, scans, args.scans, tsdf_traj, root)
     sharded_launches = phase_sharded(sim, scans)
+    bench_launches = phase_bench(cfg, sim, scans)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         _check(k["launches"] > 0, f"{k['name']} never launched on its path")
@@ -2782,6 +2906,7 @@ def main(argv=None) -> int:
                           ("grid_launches", grid_launches),
                           ("sharded_launches", sharded_launches)):
             k[key] = {run: n[k["name"]] for run, n in runs.items()}
+        k["bench_launches"] = bench_launches[k["name"]]
         k.update(extra.get(k["name"], {}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_cold",
@@ -2790,7 +2915,8 @@ def main(argv=None) -> int:
         {**{key: k[key] for key in keys},
          **{key: v for key, v in k.items()
             if key.startswith(("main_shape", "system", "closure", "cli",
-                               "live", "batch", "grid", "sharded"))}}
+                               "live", "batch", "grid", "sharded",
+                               "bench"))}}
         for k in kernels]}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,8 @@ Subcommands:
            rosbag (the file player's SaveRosbag).
   eval     ATE of a TUM trajectory against ground truth.
   info     Print the config and torch's device inventory.
+  bench    The synthetic benchmark (``noetic_slam_tpu_torch.bench``, the
+           port of root bench.py): one JSON line.
 
 Every subcommand that computes runs on the card unless ``--device`` names
 another device (``--device cpu``); without a card and without
@@ -33,6 +35,7 @@ Examples:
   python -m noetic_slam_tpu_torch.cli live --metadata m.json --duration 60
   python -m noetic_slam_tpu_torch.cli player --mulran /data/KAIST03 --out out/
   python -m noetic_slam_tpu_torch.cli info
+  BENCH_TINY=1 python -m noetic_slam_tpu_torch.cli bench --device cpu
 """
 
 from __future__ import annotations
@@ -551,6 +554,13 @@ def cmd_batch(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from noetic_slam_tpu_torch import bench
+
+    bench.main(device=args.device)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="noetic_slam_tpu_torch", description=__doc__,
@@ -682,6 +692,10 @@ def main(argv=None) -> int:
     pp.add_argument("--no-tsdf", action="store_true")
     pp.add_argument("--device", default=None, help=device_help)
     pp.set_defaults(fn=cmd_player)
+
+    pb = sub.add_parser("bench", help="synthetic benchmark")
+    pb.add_argument("--device", default=None, help=device_help)
+    pb.set_defaults(fn=cmd_bench)
 
     pe = sub.add_parser("eval", help="ATE: trajectory vs ground truth")
     pe.add_argument("trajectory", help="TUM trajectory file")

@@ -3,7 +3,8 @@ interpreter whose import system refuses ``jax`` and ``noetic_slam_tpu``
 (but not ``noetic_slam_tpu_torch``), every module of the port and every
 module that ``chip_smoke.py`` imports import (the command line, the
 ingest layer, the multi-sequence runtime, the live path, the grid NN
-engine and the sharded paths among them; ``cli info`` runs), two small
+engine, the sharded paths and the benchmark among them; ``cli info``
+runs), two small
 steps of the
 pipeline run on the CPU with each map backend, and a small SlamSystem
 syncs its keyframes into the graph, the archive and the descriptors,
@@ -47,6 +48,9 @@ SCRIPT = textwrap.dedent("""
     sharded = {"ops.gridnn", "parallel.mesh", "parallel.registration",
                "parallel.bundle_adjustment", "parallel.tsdf"}
     assert {pkg.__name__ + "." + m for m in sharded} <= set(mods), mods
+    # and the benchmark with its profiling helpers
+    bench = {"bench", "runtime.profiling"}
+    assert {pkg.__name__ + "." + m for m in bench} <= set(mods), mods
     # chip_smoke.py imports inside its phases: import every module it names
     tree = ast.parse(open("chip_smoke.py").read())
     smoke = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
