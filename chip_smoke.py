@@ -62,7 +62,7 @@ Phases, each printing its own line:
    scans/s beside the fused step alone on the same scans, closures, raced
    attempts, ``sync_lost_keyframes`` (must be 0, and every keyframe
    synced and archived), ATE, peak memory, host syncs per scan and per
-   closing call, and the ``StageTimer`` table; no call may reach a plain
+   closing call, and the span recorder's table; no call may reach a plain
    version;
 10. loop closures on the drifting loop of tests/test_slam_system.py
    (starved registration, IMU noise), twice: as the test has it, where the
@@ -345,13 +345,15 @@ def phase_device():
 
 
 def phase_build():
+    import os
+
     from noetic_slam_tpu_torch.ops.cuda import _build
 
+    how = ("already built" if os.path.exists(_build.library_path())
+           else "nvcc")
     t0 = time.perf_counter()
     _build.load()
     secs = time.perf_counter() - t0
-    how = ("already built" if _build.build_seconds is None
-           else f"nvcc {_build.build_seconds:.2f} s")
     print(f"[2 build] kernels loaded in {secs:.2f} s ({how}) -> "
           f"{_build.library_path()}", flush=True)
 
@@ -862,7 +864,7 @@ def phase_logodds(dev):
 def _profile(run, lo: int, hi: int, tag: str) -> None:
     """torch.profiler over scans [lo, hi): wall and device-busy time per
     scan, stream syncs, the kernels that take the device time, and each
-    step stage (the ``record_function`` ranges of models/odometry.py):
+    step stage (the spans of models/odometry.py, ranges under a profiler):
     host time in it, device time of the kernels it launched, and its span
     on the device timeline (gaps included). The profiler slows the host
     side; take rates from the unprofiled window."""
@@ -1316,6 +1318,7 @@ def phase_system(probes: _Probes):
 
     from noetic_slam_tpu_torch import SlamSystem
     from noetic_slam_tpu_torch.runtime.pipeline import OdometryPipeline
+    from noetic_slam_tpu_torch.runtime.profiling import RECORDER
     from noetic_slam_tpu_torch.utils import synthetic
 
     cfg = _system_cfg()
@@ -1338,6 +1341,7 @@ def phase_system(probes: _Probes):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    RECORDER.enable()
     with probes:
         t0 = time.perf_counter()
         slam.warmup()
@@ -1347,7 +1351,7 @@ def phase_system(probes: _Probes):
         _batches(slam, scans, feed, 0, untimed, calls)
         n_calls0 = len(calls)
         s0, o0 = slam.host_syncs, slam.odometry.host_syncs
-        stages0 = slam.stages.snapshot()
+        stages0 = RECORDER.snapshot()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1362,8 +1366,9 @@ def phase_system(probes: _Probes):
     syncs = slam.host_syncs - s0
     step_syncs = slam.odometry.host_syncs - o0
     peak = torch.cuda.max_memory_allocated()
-    stages = slam.stages.delta(stages0, slam.stages.snapshot())
+    stages = RECORDER.delta(stages0, RECORDER.snapshot())
     slam.sync_graph()                 # drain the last cadence (lossless)
+    RECORDER.disable()                # the table: the system's run alone
     traj = slam.flush()
     _check(len(traj) == len(scans), f"system: {len(traj)} of {len(scans)} "
            "scans processed")
@@ -1429,7 +1434,7 @@ def phase_system(probes: _Probes):
           f"launches {launches} (A inside verify_loop {probes.verify_a}, B "
           f"inside archive fusions {probes.archive_b}); closures: "
           f"{_closure_line(slam.closure_log)}", flush=True)
-    for row in slam.stages.table().splitlines():
+    for row in RECORDER.table().splitlines():
         print(f"[9 system]   {row}", flush=True)
     window = ", ".join(f"{k} {v['calls']} calls {v['total_s']:.3f} s"
                        for k, v in sorted(stages.items(),

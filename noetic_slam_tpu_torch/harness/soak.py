@@ -93,6 +93,13 @@ def _host(state) -> dict:
     ).wait().items()}
 
 
+def _closure_stages(table: dict) -> dict:
+    """The entries of a span table that are the closure path's stages
+    (``runtime/slam.py``: names without a layer prefix), which do not
+    overlap; the step's spans nest in the scans and in the stages."""
+    return {k: v for k, v in table.items() if "." not in k}
+
+
 def run(dev, tiny: bool, n_scans: int, K: int, out_path: str,
         traj_path: str, graph: tuple | None = None) -> tuple[dict, bool]:
     """The soak on ``dev``; writes ``out_path`` and ``traj_path`` and
@@ -100,7 +107,7 @@ def run(dev, tiny: bool, n_scans: int, K: int, out_path: str,
     initial (nodes, edges), default (16, 16) tiny and (256, 512) full."""
     from noetic_slam_tpu_torch.models import posegraph as pg
     from noetic_slam_tpu_torch.runtime import compile_cache
-    from noetic_slam_tpu_torch.runtime.profiling import StageTimer
+    from noetic_slam_tpu_torch.runtime.profiling import RECORDER
     from noetic_slam_tpu_torch.runtime.slam import SlamSystem
     from noetic_slam_tpu_torch.utils import synthetic
     from noetic_slam_tpu_torch.utils.synthetic import (
@@ -213,13 +220,13 @@ def run(dev, tiny: bool, n_scans: int, K: int, out_path: str,
     warmup_launches = launches_since(launches0)
     launches0 = launches()
 
-    slam.stages = StageTimer()     # stage table = post-warmup steady state
+    RECORDER.enable()       # stage table = post-warmup steady state
 
     t_start = time.perf_counter()
     done = 0
     while done < n_scans:
         hi = min(done + window, n_scans)
-        snap0 = slam.stages.snapshot()
+        snap0 = RECORDER.snapshot()
         n_clo0, cap0 = len(slam.closure_log), slam.graph.node_q.shape[0]
         win = Window(dev, slam)
         t0 = time.perf_counter()
@@ -229,7 +236,8 @@ def run(dev, tiny: bool, n_scans: int, K: int, out_path: str,
         # per-window attribution: stage deltas + event markers
         w = {"scans": hi - done,
              "scans_per_sec": round((hi - done) / (t1 - t0), 2),
-             "stages": StageTimer.delta(snap0, slam.stages.snapshot()),
+             "stages": _closure_stages(
+                 RECORDER.delta(snap0, RECORDER.snapshot())),
              "closures": len(slam.closure_log) - n_clo0,
              **win.extras()}
         if slam.graph.node_q.shape[0] != cap0:
@@ -256,7 +264,9 @@ def run(dev, tiny: bool, n_scans: int, K: int, out_path: str,
             submit(slam, done, end, closures=False)
             imu_saved = imu_i
             imu_i = imu_i0            # re-feed the same IMU span to slam2
+            RECORDER.on = False       # slam2 stays out of the stage tables
             submit(slam2, done, end, closures=False)
+            RECORDER.on = True        # (paused: enable() would restart)
             imu_i = imu_saved
             a, b = _host(slam.odometry.state), _host(slam2.odometry.state)
             diffs = [f for f in slam.odometry.state._fields
@@ -385,6 +395,8 @@ def run(dev, tiny: bool, n_scans: int, K: int, out_path: str,
                                    len(closure_secs) - 1)]
     peaks = [w["peak_memory_gib"] for w in windows
              if w["peak_memory_gib"] is not None]
+    stages = _closure_stages(RECORDER.stage_table())
+    RECORDER.disable()
     result = {
         "artifact": "long-soak SLAM run "
                     "(noetic_slam_tpu_torch.harness.soak)",
@@ -424,11 +436,10 @@ def run(dev, tiny: bool, n_scans: int, K: int, out_path: str,
         "kf_total_minus_graph_nodes": kf_total - n_nodes,
         **desc_stats,
         "stage_table": {
-            k: {"calls": slam.stages.counts[k],
-                "total_s": round(slam.stages.totals[k], 2),
-                "mean_ms": round(slam.stages.mean_ms(k), 1)}
-            for k in sorted(slam.stages.totals,
-                            key=lambda k: -slam.stages.totals[k])},
+            k: {"calls": v["calls"], "total_s": round(v["total_s"], 2),
+                "mean_ms": round(1e3 * v["total_s"] / v["calls"], 1)}
+            for k, v in sorted(stages.items(),
+                               key=lambda kv: -kv[1]["total_s"])},
         "archive_blocks_monotone": bool(
             all(b2 >= b1 for b1, b2 in zip(archive_blocks,
                                            archive_blocks[1:]))),

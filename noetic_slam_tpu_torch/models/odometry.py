@@ -30,7 +30,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from noetic_slam_tpu_torch import resolve_device
 from noetic_slam_tpu_torch.config import DlioConfig
@@ -52,6 +51,7 @@ from noetic_slam_tpu_torch.ops.pointcloud import (
     take,
     voxel_downsample,
 )
+from noetic_slam_tpu_torch.runtime.profiling import span
 from noetic_slam_tpu_torch.utils.geometry import (
     cross,
     make_se3,
@@ -555,7 +555,7 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
         f32 = dict(dtype=torch.float32, device=dev)
 
         # ---- intake: crop + mask ------------------------------------------
-        with record_function("odometry.intake_deskew"):
+        with span("odometry.intake_deskew"):
             valid_in = inp.valid
             scan = Scan(inp.xyz, inp.t, valid_in,
                         valid_in.sum().to(torch.int32))
@@ -601,7 +601,7 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
             world_pts = torch.where(prep.valid[:, None], world_pts, SENTINEL)
 
         # ---- voxel filter ---------------------------------------------------
-        with record_function("odometry.voxel"):
+        with span("odometry.voxel"):
             if cfg.preproc.voxelize:
                 ds_xyz, ds_valid, _ = voxel_downsample(
                     world_pts, prep.valid, cfg.preproc.voxel_res,
@@ -612,7 +612,7 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
             enough_points = ds_valid.sum() > cfg.gicp.min_num_points
 
         # ---- source covariances ---------------------------------------------
-        with record_function("odometry.covariances"):
+        with span("odometry.covariances"):
             if cfg.gicp.cov_engine == "radius":
                 src_cov, src_density = gicp_ops.radius_covariances(
                     ds_xyz, ds_valid, cfg.gicp.cov_radius)
@@ -622,7 +622,7 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
                     use_grid=use_grid, cell=4.0 * cfg.preproc.voxel_res)
 
         # ---- observer IMU-rate propagation over the inter-scan interval ------
-        with record_function("odometry.propagate"):
+        with span("odometry.propagate"):
             prop_window = imu_ops.slice_imu_window(
                 inp.imu_stamps, w_corr, a_corr, inp.imu_count, prop_start,
                 sweep_end, cap.max_imu_window)
@@ -653,27 +653,30 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
         true = torch.ones((), dtype=torch.bool, device=dev)
 
         def with_submap(st: OdomState, mask: Tensor) -> OdomState:
-            sm_xyz, sm_valid, sm_cov, sm_count, sm_over = gather_submap(
-                cfg, st, mask)
-            st = st._replace(
-                submap_xyz=sm_xyz, submap_valid=sm_valid, submap_cov=sm_cov,
-                submap_mask=mask, submap_count=sm_count,
-                submap_overflow=st.submap_overflow + sm_over)
-            if use_grid:
-                g = gridnn.build_grid(sm_xyz, sm_valid, grid_cell)
-                st = st._replace(grid_xyz=g.xyz, grid_keys=g.keys,
-                                 grid_order=g.order, grid_origin=g.origin)
+            with span("odometry.submap_gather"):
+                sm_xyz, sm_valid, sm_cov, sm_count, sm_over = gather_submap(
+                    cfg, st, mask)
+                st = st._replace(
+                    submap_xyz=sm_xyz, submap_valid=sm_valid,
+                    submap_cov=sm_cov, submap_mask=mask,
+                    submap_count=sm_count,
+                    submap_overflow=st.submap_overflow + sm_over)
+                if use_grid:
+                    g = gridnn.build_grid(sm_xyz, sm_valid, grid_cell)
+                    st = st._replace(grid_xyz=g.xyz, grid_keys=g.keys,
+                                     grid_order=g.order,
+                                     grid_origin=g.origin)
             return st
 
         def bootstrap(st: OdomState):
-            with record_function("odometry.keyframe_submap"):
+            with span("odometry.keyframe_submap"):
                 st = push_keyframe(st, ds_xyz, ds_valid, src_cov, true)
                 mask = select_submap_keyframes(cfg, st, alpha=threshD)
                 st = with_submap(st, mask)._replace(T_prior=T_prior)
             return st, (true, zero_diag)
 
         def register(st: OdomState):
-            with record_function("odometry.gicp"):
+            with span("odometry.gicp"):
                 grid = (gridnn.Grid(st.grid_xyz, st.grid_keys,
                                     st.grid_order, st.grid_origin,
                                     torch.full((), grid_cell, **f32))
@@ -682,7 +685,7 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
                     ds_xyz, ds_valid, src_cov, st.submap_xyz, st.submap_cov,
                     cfg.gicp, max_corr_dist=max_corr, target_grid=grid,
                     target_count=st.submap_count, syncs=syncs)
-            with record_function("odometry.keyframe_submap"):
+            with span("odometry.keyframe_submap"):
                 # degenerate-registration gate: fall back to the IMU prior
                 if cfg.gicp.max_correction > 0:
                     reg_ok = (torch.linalg.vector_norm(res.T[:3, 3])
@@ -756,7 +759,7 @@ def make_map_fuse(cfg: DlioConfig):
     sample weights or deltas, as in JAX (no host read)."""
     if cfg.map_backend == "occupancy":
         def fuse(map_state, out: StepOutput):
-            with record_function("occupancy.fuse"):
+            with span("occupancy.fuse"):
                 pos, delta = occ_mod._beam_samples(
                     cfg.occupancy, out.world_xyz, out.world_valid,
                     out.lidar_p)
@@ -765,7 +768,7 @@ def make_map_fuse(cfg: DlioConfig):
                                                  pos, delta)
     elif cfg.map_backend == "tsdf":
         def fuse(map_state, out: StepOutput):
-            with record_function("tsdf.fuse"):
+            with span("tsdf.fuse"):
                 pos, sdf, w = tsdf_mod._ray_samples(
                     cfg.tsdf, out.world_xyz, out.world_valid, out.lidar_p)
                 w = w * out.processed.to(w.dtype)

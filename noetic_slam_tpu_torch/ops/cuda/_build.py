@@ -26,7 +26,8 @@ import os
 import shutil
 import subprocess
 import threading
-import time
+
+from noetic_slam_tpu_torch.runtime.profiling import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -69,7 +70,6 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None     # wall time of this process's build
 
 
 def sources() -> list[str]:
@@ -148,17 +148,17 @@ def open_library(path: str, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use. Raises on a failed build."""
-    global _lib, build_seconds
+    """The kernel library, built on first use (the ``setup.kernels_load``
+    span: the build, if any, and the load). Raises on a failed build."""
+    global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        out = library_path()
-        if not os.path.exists(out):
-            t0 = time.perf_counter()
-            compile_library(sources(), out)
-            build_seconds = time.perf_counter() - t0
-        _lib = open_library(out)
+        with span("setup.kernels_load"):
+            out = library_path()
+            if not os.path.exists(out):
+                compile_library(sources(), out)
+            _lib = open_library(out)
         return _lib
 
 

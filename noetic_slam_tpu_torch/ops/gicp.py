@@ -30,6 +30,7 @@ import torch
 from noetic_slam_tpu_torch.config import GicpConfig
 from noetic_slam_tpu_torch.ops import gridnn, neighbors
 from noetic_slam_tpu_torch.ops.pointcloud import const
+from noetic_slam_tpu_torch.runtime.profiling import span
 from noetic_slam_tpu_torch.utils.geometry import (
     cross,
     quat_to_mat,
@@ -44,7 +45,9 @@ MAX_PER_CELL = 64   # grid candidates a cell (the JAX functions' default)
 
 class HostSyncs:
     """Counts the device->host scalar reads that decide control flow (the
-    places where JAX kept the decision on the device)."""
+    places where JAX kept the decision on the device); each read is an
+    ``odometry.host_read`` span, the time the host waits for the device's
+    queued work."""
 
     def __init__(self) -> None:
         self.n = 0
@@ -53,9 +56,11 @@ class HostSyncs:
         """One host read of one or more scalar flags, counted once.
         Returns a bool, or a tuple of bools for several flags."""
         self.n += 1
-        if len(flags) == 1:
-            return bool(flags[0])
-        return tuple(torch.stack([f.to(torch.bool) for f in flags]).tolist())
+        with span("odometry.host_read"):
+            if len(flags) == 1:
+                return bool(flags[0])
+            return tuple(torch.stack([f.to(torch.bool)
+                                      for f in flags]).tolist())
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +380,8 @@ def gicp_align(src_xyz: Tensor, src_valid: Tensor, src_cov6: Tensor,
     """Full GICP alignment: LM over SE(3) with a correspondence refresh per
     outer iteration (NanoGICP computeTransformation + step_lm);
     correspondences from ``target_grid`` when given
-    (``update_correspondences``)."""
+    (``update_correspondences``). Each outer iteration's parts are the
+    spans ``odometry.gicp.correspond``, ``.linearize`` and ``.lm``."""
     dev, dtype = src_xyz.device, src_xyz.dtype
     syncs = HostSyncs() if syncs is None else syncs
     x = (torch.eye(4, dtype=dtype, device=dev) if guess is None
@@ -389,14 +395,17 @@ def gicp_align(src_xyz: Tensor, src_valid: Tensor, src_cov6: Tensor,
     converged = torch.zeros((), dtype=torch.bool, device=dev)
     iters = 0
     while iters < cfg.max_iterations:
-        corr = update_correspondences(src_xyz, src_valid, src_cov6, tgt_xyz,
-                                      tgt_cov6, x, mcd, target_count,
-                                      target_grid)
-        H, b, y0 = linearize(src_xyz, tgt_xyz, corr, x)
-        accepted, x, lam, delta, err = _inner_lm(
-            cfg, src_xyz, tgt_xyz, corr, H, b, y0, x, lam)
-        converged = accepted & _is_converged(
-            delta, cfg.rotation_epsilon, cfg.transformation_epsilon)
+        with span("odometry.gicp.correspond"):
+            corr = update_correspondences(src_xyz, src_valid, src_cov6,
+                                          tgt_xyz, tgt_cov6, x, mcd,
+                                          target_count, target_grid)
+        with span("odometry.gicp.linearize"):
+            H, b, y0 = linearize(src_xyz, tgt_xyz, corr, x)
+        with span("odometry.gicp.lm"):
+            accepted, x, lam, delta, err = _inner_lm(
+                cfg, src_xyz, tgt_xyz, corr, H, b, y0, x, lam)
+            converged = accepted & _is_converged(
+                delta, cfg.rotation_epsilon, cfg.transformation_epsilon)
         ncorr = corr.count
         iters += 1
         if syncs.read(converged | ~accepted):

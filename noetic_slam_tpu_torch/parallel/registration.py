@@ -40,6 +40,7 @@ from noetic_slam_tpu_torch.ops.gicp import (
     linearize,
     sym6_to_mat,
 )
+from noetic_slam_tpu_torch.runtime.profiling import span
 
 Tensor = torch.Tensor
 
@@ -90,17 +91,20 @@ def sharded_gicp_align(mesh, src_xyz: Tensor, src_valid: Tensor,
         return d_min, payload
 
     def relinearize(T):
-        d, payload = global_winner(T)
-        pt, cv = payload[:, :3], payload[:, 3:]
-        # this rank's query slice, its terms summed over the ranks
-        corr = _weights(src_valid[sl], src_cov6[sl], cv[sl], d[sl], T, mcd)
-        H, b, err = linearize(src_xyz[sl], pt[sl], corr, T)
-        red = mesh.all_reduce(torch.cat([
-            H.reshape(-1), b, err[None], corr.count.to(dtype)[None]]),
-            "sum", axis)
-        # the full query set's weights (replicated), for the fixed-pair
-        # errors of the LM lambda search
-        full = _weights(src_valid, src_cov6, cv, d, T, mcd)
+        with span("odometry.gicp.correspond"):
+            d, payload = global_winner(T)
+        with span("odometry.gicp.linearize"):
+            pt, cv = payload[:, :3], payload[:, 3:]
+            # this rank's query slice, its terms summed over the ranks
+            corr = _weights(src_valid[sl], src_cov6[sl], cv[sl], d[sl], T,
+                            mcd)
+            H, b, err = linearize(src_xyz[sl], pt[sl], corr, T)
+            red = mesh.all_reduce(torch.cat([
+                H.reshape(-1), b, err[None], corr.count.to(dtype)[None]]),
+                "sum", axis)
+            # the full query set's weights (replicated), for the
+            # fixed-pair errors of the LM lambda search
+            full = _weights(src_valid, src_cov6, cv, d, T, mcd)
         return (full, pt, red[:36].reshape(6, 6), red[36:42], red[42],
                 red[43].to(torch.int64))
 
@@ -113,10 +117,11 @@ def sharded_gicp_align(mesh, src_xyz: Tensor, src_valid: Tensor,
     iters = 0
     while iters < cfg.max_iterations:
         full, pt, H, b, y0, n = relinearize(x)
-        accepted, x, lam, delta, err = _inner_lm(cfg, src_xyz, pt, full, H,
-                                                 b, y0, x, lam)
-        converged = accepted & _is_converged(
-            delta, cfg.rotation_epsilon, cfg.transformation_epsilon)
+        with span("odometry.gicp.lm"):
+            accepted, x, lam, delta, err = _inner_lm(
+                cfg, src_xyz, pt, full, H, b, y0, x, lam)
+            converged = accepted & _is_converged(
+                delta, cfg.rotation_epsilon, cfg.transformation_epsilon)
         iters += 1
         if syncs.read(converged | ~accepted):
             break

@@ -34,6 +34,7 @@ from noetic_slam_tpu_torch.models.odometry import (
 from noetic_slam_tpu_torch.models.occupancy import init_occupancy
 from noetic_slam_tpu_torch.models.tsdf import init_tsdf
 from noetic_slam_tpu_torch.ops.gicp import HostSyncs
+from noetic_slam_tpu_torch.runtime.profiling import span
 from noetic_slam_tpu_torch.utils.host import to_device
 
 
@@ -254,37 +255,46 @@ class OdometryPipeline:
         """Run one scan through the step. ``point_times`` are per-point
         offsets [s] from ``header_stamp`` (None -> no deskew). Returns the
         StepOutput (device tensors); the trajectory comes from
-        ``flush()``."""
-        self._pre_submit_checks()
-        if self.first_scan_stamp is None:
-            self.first_scan_stamp = header_stamp
-        header_delta = (0.0 if self.prev_header is None
-                        else header_stamp - self.prev_header)
-        inp = self._to_device(self._pack_scan(header_stamp, xyz, point_times,
-                                              header_delta))
-        out = self._submit(inp)
-        self._post_submit(header_stamp, out)
+        ``flush()``. The scan is a ``pipeline.scan`` span that carries its
+        index (``len(self.headers)`` at hand-off)."""
+        with span("pipeline.scan", scan=len(self.headers)):
+            self._pre_submit_checks()
+            if self.first_scan_stamp is None:
+                self.first_scan_stamp = header_stamp
+            header_delta = (0.0 if self.prev_header is None
+                            else header_stamp - self.prev_header)
+            with span("odometry.pack"):
+                inp = self._to_device(self._pack_scan(
+                    header_stamp, xyz, point_times, header_delta))
+            out = self._submit(inp)
+            self._post_submit(header_stamp, out)
         return out
 
     def process_scans(self, batch) -> None:
         """Run a list of (header_stamp, xyz, point_times|None) scans with
         ``process_scan``'s semantics. The whole batch is packed first, so
         a batch without IMU coverage raises NeedMoreImu before any scan
-        runs."""
+        runs. The batch's host packing is one ``odometry.pack`` span,
+        outside every scan; each scan's upload and step a ``pipeline.scan``
+        span."""
         if not batch:
             return
         self._pre_submit_checks()
         if self.first_scan_stamp is None:
             self.first_scan_stamp = batch[0][0]
         packed, prev = [], self.prev_header
-        for header_stamp, xyz, point_times in batch:
-            header_delta = 0.0 if prev is None else header_stamp - prev
-            packed.append(self._pack_scan(header_stamp, xyz, point_times,
-                                          header_delta))
-            prev = header_stamp
+        with span("odometry.pack"):
+            for header_stamp, xyz, point_times in batch:
+                header_delta = 0.0 if prev is None else header_stamp - prev
+                packed.append(self._pack_scan(header_stamp, xyz,
+                                              point_times, header_delta))
+                prev = header_stamp
         for (header_stamp, _, _), p in zip(batch, packed):
-            out = self._submit(self._to_device(p))
-            self._post_submit(header_stamp, out)
+            with span("pipeline.scan", scan=len(self.headers)):
+                with span("odometry.pack"):
+                    inp = self._to_device(p)
+                out = self._submit(inp)
+                self._post_submit(header_stamp, out)
 
     def warmup(self) -> None:
         """Run the step on three throwaway scans of the configured

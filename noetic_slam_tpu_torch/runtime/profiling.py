@@ -12,6 +12,10 @@
 - ``StageTimer``: named-stage wall aggregation for host-side pipelines
   (the port's own copy of the JAX class, held to the original by
   ``tests/test_torch_copies.py``).
+- ``span`` / ``RECORDER``: the port's own spans (``SpanRecorder``): the
+  scan's root, the step's stages, GICP's iterations, host reads, set-up
+  and the closure path. Off by default, where a span costs a flag check
+  (and is a ``record_function`` range while a torch profiler runs).
 - ``chip_peaks`` / ``roofline_report``: the card's published peaks and
   one line of achieved rates against them. The port's kernels run in f32
   (TF32 is off package-wide), so the operations are measured against the
@@ -20,14 +24,21 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
 import socket
+import threading
 import time
-from typing import Callable, Dict
+from time import time_ns as _now
+from typing import Callable, Dict, NamedTuple
 
-__all__ = ["slope_timer", "device_trace", "StageTimer", "CHIP_PEAKS",
-           "chip_peaks", "roofline_report"]
+from torch.autograd import profiler as _autograd_profiler
+
+__all__ = ["slope_timer", "device_trace", "StageTimer", "SpanRecord",
+           "SpanRecorder", "RECORDER", "span", "CHIP_PEAKS", "chip_peaks",
+           "roofline_report"]
 
 
 def slope_timer(run_window: Callable[[int], None], *, n1: int = 3,
@@ -137,6 +148,160 @@ class StageTimer:
             rows.append(f"{k:<25} {self.counts[k]:>5} "
                         f"{self.totals[k]:>9.3f} {self.mean_ms(k):>9.2f}")
         return "\n".join(rows)
+
+
+class SpanRecord(NamedTuple):
+    """One closed span. Times are ``time.time_ns()``, the clock of the
+    torch profiler's CPU events."""
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int      # id of the span it opened in, -1 at the top
+    scan: int        # the pipeline's index of its scan, -1 outside one
+
+
+class _Span:
+    __slots__ = ("_rec", "name", "scan", "id", "parent", "child_ns", "_t0",
+                 "_range")
+
+    def __init__(self, rec: "SpanRecorder", name: str, scan):
+        self._rec, self.name, self.scan = rec, name, scan
+
+    def __enter__(self):
+        stack = self._rec._stack()
+        top = stack[-1] if stack else None
+        if self.scan is None:
+            self.scan = top.scan if top is not None else -1
+        self.parent = top.id if top is not None else -1
+        self.id = next(self._rec._ids)
+        self.child_ns = 0
+        self._t0 = _now()
+        self._range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = _autograd_profiler.record_function(self.name)
+            self._range.__enter__()
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        t1 = _now()
+        stack = self._rec._stack()
+        stack.pop()
+        if exc[0] is not None:       # work not done: no record
+            return False
+        dur = t1 - self._t0
+        if stack:
+            stack[-1].child_ns += dur
+        self._rec._add(SpanRecord(self.name, self._t0, t1, self.id,
+                                  self.parent, self.scan),
+                       dur, dur - self.child_ns)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+class SpanRecorder:
+    """Named host spans, one process-wide recorder (``RECORDER``).
+
+    ``span(name, scan=None)`` is a context manager. Off (the default) it
+    is a flag check, and a ``torch.profiler.record_function`` range of
+    the same name while a torch profiler runs, so that a device trace can
+    say what the host was doing. On (``enable()``) it also keeps a
+    ``SpanRecord``: name, start and end on the profiler's clock, the span
+    it opened in (a stack per thread) and its scan, which the root span
+    sets (``scan=``) and every nested span inherits. A span left by an
+    exception keeps no record (a scan that ``NeedMoreImu`` holds back is
+    recorded once, when it is taken); its time counts to the span it
+    opened in. Records go into a ring of ``capacity``; totals, self times
+    (a span's time less its children's) and counts by name are kept for
+    the whole recording."""
+
+    def __init__(self, capacity: int = 1 << 17):
+        self.on = False
+        self.capacity = capacity
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._reset()
+
+    def _reset(self) -> None:
+        self._ring: collections.deque = collections.deque(
+            maxlen=self.capacity)
+        self._ids = itertools.count()
+        self.totals: Dict[str, int] = {}        # ns
+        self.self_totals: Dict[str, int] = {}   # ns
+        self.counts: Dict[str, int] = {}
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _add(self, r: SpanRecord, dur: int, own: int) -> None:
+        with self._lock:
+            self._ring.append(r)
+            self.totals[r.name] = self.totals.get(r.name, 0) + dur
+            self.self_totals[r.name] = self.self_totals.get(r.name, 0) + own
+            self.counts[r.name] = self.counts.get(r.name, 0) + 1
+
+    def span(self, name: str, scan: int | None = None):
+        """``with span("odometry.gicp"):`` — see the class."""
+        if self.on:
+            return _Span(self, name, scan)
+        if _autograd_profiler._is_profiler_enabled:
+            return _autograd_profiler.record_function(name)
+        return _OFF
+
+    def enable(self) -> None:
+        """Start a fresh recording (earlier records and totals dropped)."""
+        with self._lock:
+            self._reset()
+            self.on = True
+
+    def disable(self) -> None:
+        """Stop recording; what was recorded stays readable."""
+        self.on = False
+
+    def records(self) -> list:
+        """The newest ``capacity`` records, in the order they closed."""
+        with self._lock:
+            return list(self._ring)
+
+    def snapshot(self) -> dict:
+        """Cumulative seconds and counts by name in ``StageTimer``'s
+        format, for ``delta``."""
+        with self._lock:
+            return {"totals": {k: v * 1e-9 for k, v in self.totals.items()},
+                    "counts": dict(self.counts)}
+
+    delta = staticmethod(StageTimer.delta)
+
+    def stage_table(self) -> dict:
+        """name -> calls, total and self seconds over the recording."""
+        with self._lock:
+            return {k: {"calls": self.counts[k],
+                        "total_s": self.totals[k] * 1e-9,
+                        "self_s": self.self_totals[k] * 1e-9}
+                    for k in self.counts}
+
+    def table(self) -> str:
+        rows = ["stage                          calls   total_s    self_s"
+                "   mean_ms"]
+        tab = self.stage_table()
+        for k in sorted(tab, key=lambda k: -tab[k]["self_s"]):
+            t = tab[k]
+            rows.append(f"{k:<30} {t['calls']:>5} {t['total_s']:>9.3f} "
+                        f"{t['self_s']:>9.3f} "
+                        f"{1e3 * t['total_s'] / t['calls']:>9.2f}")
+        return "\n".join(rows)
+
+
+RECORDER = SpanRecorder()
+span = RECORDER.span
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,7 @@ from noetic_slam_tpu_torch.runtime import checkpoint as ck
 from noetic_slam_tpu_torch.runtime.archive import KeyframeArchive
 from noetic_slam_tpu_torch.runtime.pipeline import OdometryPipeline
 from noetic_slam_tpu_torch.runtime.poseext import PoseExtrapolator
-from noetic_slam_tpu_torch.runtime.profiling import StageTimer
+from noetic_slam_tpu_torch.runtime.profiling import span
 from noetic_slam_tpu_torch.utils.geometry import (
     make_se3,
     make_se3_np,
@@ -161,7 +161,6 @@ class SlamSystem:
         self.archive_eps_t = archive_eps_t
         self.archive_eps_r = archive_eps_r
         self.closure_log: list = []     # per-closure {moved, seconds, ...}
-        self.stages = StageTimer()      # host-side stage attribution
         # descriptor place recognition over every keyframe ever created;
         # desc_min_score as calibrated for the JAX package
         self.desc_store = None
@@ -257,24 +256,26 @@ class SlamSystem:
         (the dense solve and the block-Jacobi inverses), and the descriptor
         store's upload. Every result is discarded, so later results are
         bitwise those of a run without it (tests/test_torch_archive.py).
-        Optional."""
-        if self.device.type == "cuda":
-            from noetic_slam_tpu_torch.ops.cuda import _build
+        Optional; the ``setup.warmup`` span."""
+        with span("setup.warmup"):
+            if self.device.type == "cuda":
+                from noetic_slam_tpu_torch.ops.cuda import _build
 
-            _build.load()
-        self.odometry.warmup()
-        if self.desc_store is not None:
-            self.desc_store._sync_dev()
-            zq = torch.zeros((4, N_RINGS, N_SECTORS), device=self.device)
-            match_store_batch(zq, self.desc_store._dev, 0,
-                              torch.zeros(4, dtype=torch.int64,
-                                          device=self.device))
-        if self.enable_loop_closure:
-            eye = torch.eye(6, device=self.device)
-            torch.linalg.solve_ex(eye, torch.zeros(6, device=self.device))
-            torch.linalg.inv_ex(eye[None])
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                _build.load()
+            self.odometry.warmup()
+            if self.desc_store is not None:
+                self.desc_store._sync_dev()
+                zq = torch.zeros((4, N_RINGS, N_SECTORS), device=self.device)
+                match_store_batch(zq, self.desc_store._dev, 0,
+                                  torch.zeros(4, dtype=torch.int64,
+                                              device=self.device))
+            if self.enable_loop_closure:
+                eye = torch.eye(6, device=self.device)
+                torch.linalg.solve_ex(eye,
+                                      torch.zeros(6, device=self.device))
+                torch.linalg.inv_ex(eye[None])
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ per scan
     def push_imu(self, stamp, ang, acc):
@@ -322,7 +323,7 @@ class SlamSystem:
         self._pending_sync = None
         if prev_total != self._synced_total:
             raise RuntimeError("pending sync raced a completed drain")
-        with self.stages("sync_fetch"):
+        with span("sync_fetch"):
             self._syncs.n += 1
             h = fetch.wait()
         return self._drain(h, n_hdr)
@@ -387,7 +388,7 @@ class SlamSystem:
         st = self.odometry.state
         if st is None:
             return 0
-        with self.stages("sync_fetch"):
+        with span("sync_fetch"):
             h = self._fetch({
                 "total": st.kf_total, "seq": st.kf_seq, "q": st.kf_quat,
                 "p": st.kf_pos, "count": st.kf_count,
@@ -427,7 +428,7 @@ class SlamSystem:
                                 for _, ob, i in recs])
         xyz_new = valid_new = None
         if self.archive is not None or self.desc_store is not None:
-            with self.stages("sync_clouds"):
+            with span("sync_clouds"):
                 from_ob = np.asarray([ob for _, ob, _ in recs])
                 ob_sel = to_device(np.asarray(
                     [i if ob else 0 for _, ob, i in recs]), self.device)
@@ -477,11 +478,11 @@ class SlamSystem:
         self._last_kf_pose = (new_q[-1].copy(), new_p[-1].copy())
 
         if self.archive is not None:
-            with self.stages("archive_add"):
+            with span("archive_add"):
                 self.archive.add_batch(node_ids, new_q, new_p, xyz_new,
                                        valid_new)
         if self.desc_store is not None:
-            with self.stages("desc_add"):
+            with span("desc_add"):
                 descs = []
                 for k in range(count):
                     local = (xyz_new[k] - new_p[k]) @ quat_to_mat_np(new_q[k])
@@ -523,7 +524,7 @@ class SlamSystem:
             if self._pending_desc is not None:
                 nodes_q, handle = self._pending_desc
                 self._pending_desc = None
-                with self.stages("desc_query"):
+                with span("desc_query"):
                     self._syncs.n += 1
                     res = self.desc_store.query_batch_finish(handle)
                 self._record_desc_results(nodes_q, res, matched)
@@ -533,7 +534,7 @@ class SlamSystem:
                       for c0 in range(start, end + 1, 64)]
             sync_chunks = chunks[:-1] if self.pipelined else chunks
             for nodes_q in sync_chunks:
-                with self.stages("desc_query"):
+                with span("desc_query"):
                     self._syncs.n += 1
                     res = self.desc_store.query_batch(
                         nodes_q, nodes_q - self.loop_min_gap)
@@ -541,7 +542,7 @@ class SlamSystem:
                 self._record_desc_results(nodes_q, res, matched)
             if self.pipelined and chunks:
                 nodes_q = chunks[-1]
-                with self.stages("desc_dispatch"):
+                with span("desc_dispatch"):
                     handle = self.desc_store.query_batch_start(
                         nodes_q, nodes_q - self.loop_min_gap)
                 self._pending_desc = (nodes_q, handle)
@@ -681,7 +682,7 @@ class SlamSystem:
         the verdict on the device: a guarded slot evicted since the
         metadata was fetched makes the attempt read as raced."""
         st = self.odometry.state
-        with self.stages("closure_verify"):
+        with span("closure_verify"):
             T_corr, accepted = pg.verify_loop(
                 cur_xyz, cur_valid, cur_cov, cand_xyz, cand_cov,
                 self._verify_cfg(),
@@ -717,7 +718,7 @@ class SlamSystem:
 
         # drift budget: correction against the path length between the two
         # nodes along the graph's insertion-ordered chain
-        with self.stages("closure_budget_fetch"):
+        with span("closure_budget_fetch"):
             node_p = self._fetch({"p": self.graph.node_p})["p"]
         lo, hi = min(cand_node, cur_node), max(cand_node, cur_node)
         path_len = float(np.sum(np.linalg.norm(
@@ -738,13 +739,13 @@ class SlamSystem:
         if self._edges_host + 1 > self.graph.edge_i.shape[0]:
             self.graph = pg.grow(self.graph,
                                  max_edges=2 * self.graph.edge_i.shape[0])
-        with self.stages("closure_add_edge"):
+        with span("closure_add_edge"):
             self.graph = pg.add_edge(self.graph, cand_node, cur_node, dq, dp,
                                      w_rot=2.0, w_trans=2.0)
         self._edges_host += 1
 
         t0 = time.perf_counter()
-        with self.stages("closure_optimize"):
+        with span("closure_optimize"):
             # solver by the live node count; large corrections run more
             # passes of the same 3-step solve
             n_live = max(self._synced_total, 1)
@@ -780,7 +781,7 @@ class SlamSystem:
         archived keyframes re-fused."""
         st = self.odometry.state
         g = self.graph
-        with self.stages("closure_fetch_poses"):
+        with span("closure_fetch_poses"):
             h = self._fetch({"node_q": g.node_q, "node_p": g.node_p,
                              "kf_q": st.kf_quat, "kf_p": st.kf_pos})
         node_q, node_p = h["node_q"], h["node_p"]
@@ -795,7 +796,7 @@ class SlamSystem:
             self._last_kf_pose = (new_q[last_slot].copy(),
                                   new_p[last_slot].copy())
 
-        with self.stages("closure_deform"):
+        with span("closure_deform"):
             self.odometry.state = _deform_state(
                 st, to_device(new_q, self.device),
                 to_device(new_p, self.device))
@@ -804,11 +805,11 @@ class SlamSystem:
         if self.enable_tsdf and self.odometry.tsdf_state is not None:
             st2 = self.odometry.state
             if self.archive is not None:
-                with self.stages("archive_apply"):
+                with span("archive_apply"):
                     moved = self.archive.apply_poses(
                         node_q, node_p, eps_t=self.archive_eps_t,
                         eps_r=self.archive_eps_r)
-                with self.stages("archive_snapshot"):
+                with span("archive_snapshot"):
                     self.odometry.tsdf_state = self.archive.snapshot_live()
             elif self.cfg.map_backend == "occupancy":
                 self.odometry.tsdf_state = occ_mod.rebuild_from_keyframes(
