@@ -44,6 +44,19 @@ Phases, each printing its own line:
    kernel B must run once per scan. 6b: kernel A against its plain version
    and timed beside ``cdist``+``amin`` on the operands of one real
    correspondence search kept from that run (ten scans before its end);
+   6c: kernel D (GICP's LM lambda search in one launch) over
+   ``LM_SCANS`` more main-path scans, the counters set to 0 just before
+   (A, B and D launches and D's tally of the candidate that ended each
+   search printed; D must launch), then D against its plain version on
+   the operands of the last scan's first search (8,192 pairs, K = 10) and
+   on a ``verify_loop``-sized problem 30 m out with sentinel rows: the
+   same chosen candidate, accepted and stop, x within 1e-5 of its scale,
+   lambda bitwise where the search ended on a reject and within 1e-6
+   after an accept (a factor of rho, which carries each side's own solve),
+   y bitwise the plain error at D's own x, two launches bitwise equal; D hot and cold, its bound, the plain version's time and
+   the masked loop's that ran before D (tests/test_torch_lm_search.py's
+   oracle) as its yardstick, each by CUDA events and by host wall time a
+   call;
 7. the occupancy path: the first ``OCC_SCANS`` of those scans through
    ``OdometryPipeline(cfg.replace(map_backend="occupancy"), with_tsdf=True)``
    at the ``OccupancyConfig`` defaults, counters reset just before it;
@@ -589,6 +602,180 @@ def phase_nn_main_shape(kept):
     return {"main_shape_ms": t["ms"], "main_shape_ms_cold": t["ms_cold"],
             "main_shape_library_ms": t["library_ms"],
             "main_shape_live_rows": n_live}
+
+
+LM_SCANS = 10            # main-path scans of phase 6c
+LM_VERIFY_PAIRS = 4096   # a keyframe cloud of phase 9's system (verify_loop)
+LM_BYTES_PER_PAIR = 60   # source point 12 B, target row 12 B, weight 36 B
+LM_OPS_PER_PAIR = 29     # f32 operations of one candidate's term e^T M e
+
+
+def _lm_oracle_module():
+    """tests/test_torch_lm_search.py, loaded by path (its oracle, the
+    masked loop that ran before kernel D, and the maker of its problems); the
+    process's CPU thread count is kept."""
+    import importlib.util
+    import os
+
+    import torch
+
+    threads = torch.get_num_threads()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_lm_search.py")
+    spec = importlib.util.spec_from_file_location("lm_search_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    torch.set_num_threads(threads)
+    return mod
+
+
+def _wall_ms(fn, iters: int) -> float:
+    """Host wall ms a call, the device drained at both ends: what a caller
+    waits for a call that is read right after."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def _lm_verify_problem(tests, dev):
+    """A ``verify_loop``-sized search: LM_VERIFY_PAIRS source points 30 m
+    out, the last tenth sentinel rows (1e7, weight 0), linearised."""
+    import torch
+
+    from noetic_slam_tpu_torch.ops import gicp as gicp_ops
+
+    src, corr, x0 = (tests._problem(LM_VERIFY_PAIRS,
+                                    offset=(30.0, -20.0, 1.0))[i]
+                     for i in (0, 1, 5))
+    cut = LM_VERIFY_PAIRS - LM_VERIFY_PAIRS // 10
+    src = src.clone()
+    src[cut:] = 1e7
+    maha = corr.maha.clone()
+    maha[cut:] = 0.0
+    corr = corr._replace(maha=maha)
+    H, b, y0 = gicp_ops.linearize(src, corr, x0)
+    return tuple(x.to(dev) for x in (src, corr.tgt_rows, maha, H, b, y0, x0,
+                                     torch.full((), -1.0)))
+
+
+def _lm_check(tag, cfg, args):
+    """Kernel D against its plain version on one search's operands:
+    (max |dx|, lambdas equal, chosen k)."""
+    import torch
+
+    from noetic_slam_tpu_torch.ops.cuda import lm_kernel as lk
+
+    got = lk.lm_search_fused(cfg, *args)
+    again = lk.lm_search_fused(cfg, *args)
+    want = lk.lm_search_plain(cfg, *args)
+    for name in ("k", "accepted", "stop", "converged"):
+        _check(bool(torch.equal(getattr(got, name), getattr(want, name))),
+               f"kernel D {tag}: {name} {getattr(got, name).item()} / plain "
+               f"{getattr(want, name).item()}")
+    _check(all(torch.equal(u, v) for u, v in zip(got, again)),
+           f"kernel D {tag}: two launches differ")
+    dx = float(torch.abs(got.x - want.x).max())
+    scale = max(1.0, float(torch.abs(want.x).max()))
+    _check(dx <= TOL * scale, f"kernel D {tag}: max |dx| {dx:.3e}")
+    # lambda: a product of the schedule where the search ended on a
+    # reject, bitwise; after an accept lambda_k times a factor of rho, and
+    # rho carries each side's own 6x6 solve
+    moved = not torch.equal(got.x, args[6])
+    lam_equal = bool(torch.equal(got.lam, want.lam))
+    lam_rel = float(torch.abs(got.lam - want.lam) / torch.abs(want.lam))
+    _check(lam_equal or (moved and lam_rel <= 1e-6),
+           f"kernel D {tag}: lambda {got.lam.item()!r} / plain "
+           f"{want.lam.item()!r}")
+    at_x = lk.error_sums(args[0], args[1], args[2], got.x)
+    _check(bool(torch.equal(got.y, at_x if moved else args[5])),
+           f"kernel D {tag}: y {got.y.item()!r} is not the plain error at "
+           f"its x {at_x.item()!r}")
+    return dx, lam_equal, int(got.k)
+
+
+def phase_lm(cfg, sim, scans) -> dict:
+    """Phase 6c (module docstring)."""
+    import torch
+
+    from noetic_slam_tpu_torch.ops import gicp as gicp_ops
+    from noetic_slam_tpu_torch.ops.cuda import lm_kernel as lk
+
+    tests = _lm_oracle_module()
+    kept = {}
+    now = {"scan": -1}
+    inner = gicp_ops.lm_search
+
+    def keeping(gcfg, *args):
+        if now["scan"] == LM_SCANS - 1 and "args" not in kept:
+            kept["args"] = tuple(x.clone() for x in args)
+        return inner(gcfg, *args)
+
+    dev = torch.device("cuda")
+    lk.reset_tally(dev)
+    gicp_ops.lm_search = keeping
+    try:
+        _, _, launches, stats = _drive("kernel D path", cfg, sim, scans,
+                                       LM_SCANS,
+                                       on_scan=lambda i: now.update(scan=i))
+    finally:
+        gicp_ops.lm_search = inner
+    tally = lk.tally(dev)
+    _check(launches["lm_search_fused"] > 0, "kernel D never launched on "
+           "the main path")
+    _check("args" in kept, "kernel D: no search kept from the main path")
+    print(f"[6c kernel D path] {LM_SCANS} main-path scans: launches A "
+          f"{launches['nn1_fused']}, B {launches['block_accumulate']}, D "
+          f"{launches['lm_search_fused']}; searches ended at candidate "
+          f"0..{lk.KMAX - 1} / none: {tally}; ATE {stats['ate']:.4f} m",
+          flush=True)
+    gcfg = cfg.gicp
+    rows = {}
+    for tag, args in (("main shape", kept["args"]),
+                      ("verify_loop-sized", _lm_verify_problem(tests, dev))):
+        n = args[0].shape[0]
+        dx, lam_equal, k = _lm_check(tag, gcfg, args)
+        corr = gicp_ops.Correspondences(None, args[1], args[2], None, None)
+        kern = lambda: lk.lm_search_fused(gcfg, *args)  # noqa: E731
+        plain = lambda: lk.lm_search_plain(gcfg, *args)  # noqa: E731
+        loop = lambda: tests.inner_lm_oracle(  # noqa: E731
+            gcfg, args[0], corr, *args[3:])
+        t = {"ms": _time_ms(kern, 50), "ms_cold": _time_cold_ms(kern, 15),
+             "wall_ms": _wall_ms(kern, 50),
+             "plain_ms": _time_ms(plain, 10), "plain_wall_ms": _wall_ms(
+                 plain, 10),
+             "loop_ms": _time_ms(loop, 5), "loop_wall_ms": _wall_ms(loop, 5)}
+        bound_ms, bound_by = _bound(n * LM_BYTES_PER_PAIR,
+                                    n * gcfg.lm_max_iterations
+                                    * LM_OPS_PER_PAIR)
+        rows[tag] = {"pairs": n, "max_dx": dx, "lam_equal": lam_equal,
+                     "k": k, "bound_ms": bound_ms, "bound_by": bound_by, **t}
+        print(f"[6c kernel D {tag}] {n} pairs, K {gcfg.lm_max_iterations}: "
+              f"ended at candidate {k}, max |dx| {dx:.3e}, lambda equal "
+              f"{lam_equal}, y bitwise the plain error at its x; D "
+              f"{t['ms']:.4f} ms hot / {t['ms_cold']:.4f} cold (events), "
+              f"{t['wall_ms']:.4f} ms a call on the host; bound "
+              f"{bound_ms:.5f} ms ({bound_by}); plain version "
+              f"{t['plain_ms']:.3f} ms (events) / {t['plain_wall_ms']:.3f} "
+              f"ms (host); the masked loop it replaced "
+              f"{t['loop_ms']:.3f} ms (events) / {t['loop_wall_ms']:.3f} "
+              f"ms (host)", flush=True)
+    main = rows["main shape"]
+    row = _kernel_row("lm_search_fused", "noetic_slam_tpu_torch/csrc/"
+                      "lm_search.cu", "none (lax.while_loop)",
+                      main["max_dx"], main["ms"], main["plain_ms"],
+                      None, main["pairs"] * LM_BYTES_PER_PAIR,
+                      main["pairs"] * gcfg.lm_max_iterations
+                      * LM_OPS_PER_PAIR, main["ms_cold"])
+    row.update(launches=launches["lm_search_fused"], tally=tally,
+               loop_ms=main["loop_ms"], loop_wall_ms=main["loop_wall_ms"],
+               rows=rows)
+    return row
 
 
 def _stream_addresses(runs, ivox):
@@ -3292,6 +3479,7 @@ def main(argv=None) -> int:
         cfg, sim, scans, args.scans, args.profile)
     kernels[0].update(phase_nn_main_shape(kept))
     del kept
+    lm_row = phase_lm(cfg, sim, scans)
     occ_pipe, occ_traj, occ_launches = phase_occupancy_path(
         cfg, sim, scans, OCC_SCANS, args.profile)
     phase_map_products(cfg.tsdf, tsdf_pipe.tsdf_state, tsdf_traj,
@@ -3345,7 +3533,7 @@ def main(argv=None) -> int:
                                "live", "batch", "grid", "sharded",
                                "bench", "harness", "drift", "profile",
                                "scaling"))}}
-        for k in kernels]}))
+        for k in kernels] + [lm_row]}))
     print(gpu_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

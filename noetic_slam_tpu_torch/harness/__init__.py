@@ -100,9 +100,10 @@ def launches_since(before: dict) -> dict:
 
 
 def kernel_counters() -> dict:
-    """name -> the wrapper of kernels A, B and C; each counts its own
+    """name -> the wrapper of kernels A, B, C and D; each counts its own
     launches in ``.launches``."""
     from noetic_slam_tpu_torch.ops.cuda import (
+        lm_kernel,
         logodds_kernel,
         nn_kernel,
         tsdf_kernel,
@@ -110,7 +111,8 @@ def kernel_counters() -> dict:
 
     return {"nn1_fused": nn_kernel.nn1_fused,
             "block_accumulate": tsdf_kernel.block_accumulate,
-            "logodds_accumulate": logodds_kernel.logodds_accumulate}
+            "logodds_accumulate": logodds_kernel.logodds_accumulate,
+            "lm_search_fused": lm_kernel.lm_search_fused}
 
 
 class PlainCalls:
@@ -121,11 +123,13 @@ class PlainCalls:
     def __init__(self):
         from noetic_slam_tpu_torch.models import occupancy, tsdf
         from noetic_slam_tpu_torch.ops import neighbors
+        from noetic_slam_tpu_torch.ops.cuda import lm_kernel
 
         self.n = 0
         self._names = [(neighbors, "nn1_plain"),
                        (tsdf, "block_accumulate_plain"),
-                       (occupancy, "logodds_accumulate_plain")]
+                       (occupancy, "logodds_accumulate_plain"),
+                       (lm_kernel, "lm_search_plain")]
         self._orig = [getattr(m, name) for m, name in self._names]
 
     def __enter__(self):

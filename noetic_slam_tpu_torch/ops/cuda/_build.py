@@ -66,6 +66,14 @@ _SIGNATURES = {
     "nst_block_accum_warps": [],
     "nst_block_accum_short": [],
     "nst_block_accum_part": [],
+    # src, tgt_rows, maha, n, H, b, y0, x0, lam_in, K, init_lambda_factor,
+    # rotation_epsilon, transformation_epsilon, partials, ticket, tally,
+    # out, stream
+    "nst_lm_search_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F,
+                             _F, _P, _P, _P, _P, _P],
+    # kernel D's shape: the most candidates, the pairs a block; no arguments
+    "nst_lm_search_kmax": [],
+    "nst_lm_search_block_pairs": [],
 }
 
 _lock = threading.Lock()

@@ -6,12 +6,16 @@ plane covariances, 1-NN correspondences with Mahalanobis weights
 schedule of NanoGICP.
 
 The two ``lax.while_loop``s of ``gicp_align`` become:
-- the inner LM lambda search: a fixed budget of ``lm_max_iterations``
-  masked iterations on the device. Once the search is done its carry is
-  left untouched, so the result equals the early-exiting loop's;
-- the outer loop: a Python loop that reads its continue flag on the host
-  once per iteration (each iteration costs an NN search anyway). Every
-  such read is counted in ``syncs`` (see ``HostSyncs``).
+- the inner LM lambda search: ``ops.cuda.lm_kernel.lm_search``, every
+  candidate of the fixed lambda schedule solved and scored in one pass
+  over the pairs (kernel D on the card, its plain version on the CPU),
+  with the early-exiting loop's result;
+- the outer loop: a Python loop that reads the search's ``stop`` flag on
+  the host once per iteration (each iteration costs an NN search anyway).
+  Every such read is counted in ``syncs`` (see ``HostSyncs``).
+
+The correspondences carry the gathered target rows, so the
+linearisation and the search read them without indexing again.
 
 With a ``target_grid`` (``ops.gridnn.Grid`` over the target, the step's
 ``nn_engine="grid"``) correspondences come from the grid search and
@@ -29,14 +33,9 @@ import torch
 
 from noetic_slam_tpu_torch.config import GicpConfig
 from noetic_slam_tpu_torch.ops import gridnn, neighbors
-from noetic_slam_tpu_torch.ops.pointcloud import const
+from noetic_slam_tpu_torch.ops.cuda.lm_kernel import error_sums, lm_search
 from noetic_slam_tpu_torch.runtime.profiling import span
-from noetic_slam_tpu_torch.utils.geometry import (
-    cross,
-    quat_to_mat,
-    skew,
-    so3_exp_quat,
-)
+from noetic_slam_tpu_torch.utils.geometry import cross, skew
 
 Tensor = torch.Tensor
 
@@ -238,6 +237,7 @@ def plane_covariances(xyz: Tensor, valid: Tensor, k: int = 16,
 
 class Correspondences(NamedTuple):
     tgt_idx: Tensor   # (N,) target index
+    tgt_rows: Tensor  # (N, 3) the target rows at tgt_idx
     maha: Tensor      # (N, 3, 3) Mahalanobis weight (0 for rejected pairs)
     weight: Tensor    # (N,) 1.0 accepted else 0.0
     count: Tensor     # () accepted pairs
@@ -276,15 +276,14 @@ def update_correspondences(src_xyz: Tensor, src_valid: Tensor,
     rcr = cov_b + R @ cov_a @ R.T
     w = accept.to(src_xyz.dtype)
     maha = _inv3_sym(rcr) * w[:, None, None]
-    return Correspondences(idx, maha, w, accept.sum())
+    return Correspondences(idx, tgt_xyz[idx], maha, w, accept.sum())
 
 
-def linearize(src_xyz: Tensor, tgt_xyz: Tensor, corr: Correspondences,
-              T: Tensor):
+def linearize(src_xyz: Tensor, corr: Correspondences, T: Tensor):
     """Masked H (6x6), b (6) and error at T: J = [skew(T p) | -I],
     H = Σ J^T M J, b = Σ J^T M e, e = p_tgt - T p_src."""
     transed = _transform(src_xyz, T)
-    e = tgt_xyz[corr.tgt_idx] - transed
+    e = corr.tgt_rows - transed
     eye = torch.eye(3, dtype=src_xyz.dtype, device=src_xyz.device)
     J = torch.cat([skew(transed), -eye.expand(transed.shape + (3,))],
                   dim=-1)                                  # (N, 3, 6)
@@ -296,31 +295,16 @@ def linearize(src_xyz: Tensor, tgt_xyz: Tensor, corr: Correspondences,
     return H, b, err
 
 
-def compute_error(src_xyz: Tensor, tgt_xyz: Tensor, corr: Correspondences,
-                  T: Tensor) -> Tensor:
-    """Σ e^T M e at T with fixed correspondences."""
-    e = tgt_xyz[corr.tgt_idx] - _transform(src_xyz, T)
-    return torch.einsum("ni,nij,nj->", e, corr.maha, e)
+def compute_error(src_xyz: Tensor, corr: Correspondences, T: Tensor
+                  ) -> Tensor:
+    """Σ e^T M e at T with fixed correspondences, summed as the LM search
+    sums (``lm_kernel.error_sums``)."""
+    return error_sums(src_xyz, corr.tgt_rows, corr.maha, T)
 
 
 # ---------------------------------------------------------------------------
 # Levenberg-Marquardt loop
 # ---------------------------------------------------------------------------
-
-def _delta_to_T(d: Tensor) -> Tensor:
-    """6-vector -> SE(3): rotation exp(d[0:3]), translation d[3:6]."""
-    top = torch.cat([quat_to_mat(so3_exp_quat(d[:3])), d[3:, None]], dim=1)
-    return torch.cat([top, const(((0.0, 0.0, 0.0, 1.0),), d.device)], dim=0)
-
-
-def _is_converged(delta_T: Tensor, rot_eps: float, trans_eps: float
-                  ) -> Tensor:
-    R = delta_T[:3, :3] - torch.eye(3, dtype=delta_T.dtype,
-                                    device=delta_T.device)
-    r_delta = torch.max(torch.abs(R)) / rot_eps
-    t_delta = torch.max(torch.abs(delta_T[:3, 3])) / trans_eps
-    return torch.maximum(r_delta, t_delta) < 1.0
-
 
 class AlignResult(NamedTuple):
     T: Tensor            # (4, 4) final transformation
@@ -329,46 +313,6 @@ class AlignResult(NamedTuple):
     iterations: Tensor   # () outer iterations executed
     converged: Tensor    # () bool
     num_corr: Tensor     # () correspondences at the last linearization
-
-
-def _inner_lm(cfg: GicpConfig, src_xyz, tgt_xyz, corr, H, b, y0, x0,
-              lm_lambda):
-    """One step_lm lambda search as ``lm_max_iterations`` masked
-    iterations. Returns (accepted, x_new, lambda_new, delta_T, y_new)."""
-    dev, dtype = src_xyz.device, src_xyz.dtype
-    lam = torch.where(lm_lambda < 0.0,
-                      cfg.init_lambda_factor * torch.max(torch.abs(
-                          torch.diagonal(H))), lm_lambda)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    accepted = done.clone()
-    nu = torch.full((), 2.0, dtype=dtype, device=dev)
-    x, y = x0, y0
-    dT = torch.eye(4, dtype=dtype, device=dev)
-    for _ in range(cfg.lm_max_iterations):
-        d = torch.linalg.solve_ex(H + lam * eye6, -b)[0]
-        delta = _delta_to_T(d)
-        xi = delta @ x
-        yi = compute_error(src_xyz, tgt_xyz, corr, xi)
-        rho = (y0 - yi) / torch.dot(d, lam * d - b)
-        reject = rho < 0
-        conv_on_reject = reject & _is_converged(
-            delta, cfg.rotation_epsilon, cfg.transformation_epsilon)
-        lam_new = torch.where(
-            reject, nu * lam,
-            lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0))
-        nu_new = torch.where(reject, 2.0 * nu, 2.0)
-        step_done = ~reject | conv_on_reject
-        # a finished search keeps its carry
-        keep = done
-        lam = torch.where(keep, lam, lam_new)
-        nu = torch.where(keep, nu, nu_new)
-        x = torch.where(keep | reject, x, xi)
-        y = torch.where(keep | reject, y, yi)
-        dT = torch.where(keep, dT, delta)
-        accepted = torch.where(keep, accepted, step_done)
-        done = done | step_done
-    return accepted, x, lam, dT, y
 
 
 def gicp_align(src_xyz: Tensor, src_valid: Tensor, src_cov6: Tensor,
@@ -400,15 +344,14 @@ def gicp_align(src_xyz: Tensor, src_valid: Tensor, src_cov6: Tensor,
                                           tgt_xyz, tgt_cov6, x, mcd,
                                           target_count, target_grid)
         with span("odometry.gicp.linearize"):
-            H, b, y0 = linearize(src_xyz, tgt_xyz, corr, x)
+            H, b, y0 = linearize(src_xyz, corr, x)
         with span("odometry.gicp.lm"):
-            accepted, x, lam, delta, err = _inner_lm(
-                cfg, src_xyz, tgt_xyz, corr, H, b, y0, x, lam)
-            converged = accepted & _is_converged(
-                delta, cfg.rotation_epsilon, cfg.transformation_epsilon)
+            lm = lm_search(cfg, src_xyz, corr.tgt_rows, corr.maha, H, b, y0,
+                           x, lam)
+        x, lam, err, converged = lm.x, lm.lam, lm.y, lm.converged
         ncorr = corr.count
         iters += 1
-        if syncs.read(converged | ~accepted):
+        if syncs.read(lm.stop):
             break
     return AlignResult(x, H, err,
                        torch.full((), iters, dtype=torch.int64, device=dev),

@@ -18,9 +18,11 @@ across the ranks of a ``parallel.mesh.Mesh`` axis:
 - each rank linearises its 1/D slice of the queries, and H, b, the error
   and the correspondence count are summed in one ``all_reduce``.
 
-The LM loops are ``ops.gicp``'s. Every value a branch reads on the host
-comes out of an all-reduce or from replicated inputs, so every rank takes
-the same branch and leaves the outer loop at the same iteration.
+The LM lambda search is ``ops.cuda.lm_kernel.lm_search`` (kernel D on
+the card), on the full query set's gathered payload rows. Every value a
+branch reads on the host comes out of an all-reduce or from replicated
+inputs, so every rank takes the same branch and leaves the outer loop at
+the same iteration.
 """
 
 from __future__ import annotations
@@ -29,13 +31,12 @@ import torch
 
 from noetic_slam_tpu_torch.config import GicpConfig
 from noetic_slam_tpu_torch.ops import neighbors
+from noetic_slam_tpu_torch.ops.cuda.lm_kernel import lm_search
 from noetic_slam_tpu_torch.ops.gicp import (
     AlignResult,
     Correspondences,
     HostSyncs,
-    _inner_lm,
     _inv3_sym,
-    _is_converged,
     _transform,
     linearize,
     sym6_to_mat,
@@ -45,16 +46,18 @@ from noetic_slam_tpu_torch.runtime.profiling import span
 Tensor = torch.Tensor
 
 
-def _weights(valid: Tensor, src_cov6: Tensor, tgt_cov6: Tensor, d: Tensor,
-             T: Tensor, mcd: Tensor) -> Correspondences:
-    """Mahalanobis weights of fixed pairs (query i with payload row i)."""
+def _weights(valid: Tensor, src_cov6: Tensor, tgt_rows: Tensor,
+             tgt_cov6: Tensor, d: Tensor, T: Tensor, mcd: Tensor
+             ) -> Correspondences:
+    """Mahalanobis weights of fixed pairs (query i with payload row i:
+    ``tgt_rows[i]``, ``tgt_cov6[i]``)."""
     accept = valid & (d < mcd * mcd)
     R = T[:3, :3]
     rcr = sym6_to_mat(tgt_cov6) + R @ sym6_to_mat(src_cov6) @ R.T
     w = accept.to(src_cov6.dtype)
     idx = torch.arange(valid.shape[0], device=valid.device)
-    return Correspondences(idx, _inv3_sym(rcr) * w[:, None, None], w,
-                           accept.sum())
+    return Correspondences(idx, tgt_rows, _inv3_sym(rcr) * w[:, None, None],
+                           w, accept.sum())
 
 
 def sharded_gicp_align(mesh, src_xyz: Tensor, src_valid: Tensor,
@@ -96,16 +99,16 @@ def sharded_gicp_align(mesh, src_xyz: Tensor, src_valid: Tensor,
         with span("odometry.gicp.linearize"):
             pt, cv = payload[:, :3], payload[:, 3:]
             # this rank's query slice, its terms summed over the ranks
-            corr = _weights(src_valid[sl], src_cov6[sl], cv[sl], d[sl], T,
-                            mcd)
-            H, b, err = linearize(src_xyz[sl], pt[sl], corr, T)
+            corr = _weights(src_valid[sl], src_cov6[sl], pt[sl], cv[sl],
+                            d[sl], T, mcd)
+            H, b, err = linearize(src_xyz[sl], corr, T)
             red = mesh.all_reduce(torch.cat([
                 H.reshape(-1), b, err[None], corr.count.to(dtype)[None]]),
                 "sum", axis)
             # the full query set's weights (replicated), for the
             # fixed-pair errors of the LM lambda search
-            full = _weights(src_valid, src_cov6, cv, d, T, mcd)
-        return (full, pt, red[:36].reshape(6, 6), red[36:42], red[42],
+            full = _weights(src_valid, src_cov6, pt, cv, d, T, mcd)
+        return (full, red[:36].reshape(6, 6), red[36:42], red[42],
                 red[43].to(torch.int64))
 
     x = torch.eye(4, dtype=dtype, device=dev)
@@ -116,14 +119,13 @@ def sharded_gicp_align(mesh, src_xyz: Tensor, src_valid: Tensor,
     converged = torch.zeros((), dtype=torch.bool, device=dev)
     iters = 0
     while iters < cfg.max_iterations:
-        full, pt, H, b, y0, n = relinearize(x)
+        full, H, b, y0, n = relinearize(x)
         with span("odometry.gicp.lm"):
-            accepted, x, lam, delta, err = _inner_lm(
-                cfg, src_xyz, pt, full, H, b, y0, x, lam)
-            converged = accepted & _is_converged(
-                delta, cfg.rotation_epsilon, cfg.transformation_epsilon)
+            lm = lm_search(cfg, src_xyz, full.tgt_rows, full.maha, H, b, y0,
+                           x, lam)
+        x, lam, err, converged = lm.x, lm.lam, lm.y, lm.converged
         iters += 1
-        if syncs.read(converged | ~accepted):
+        if syncs.read(lm.stop):
             break
     return AlignResult(x, H, err,
                        torch.full((), iters, dtype=torch.int64, device=dev),

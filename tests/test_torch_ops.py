@@ -323,11 +323,12 @@ def test_correspondences_and_linearize_match_jax(rng):
     close(tcorr.maha[acc][same], np.asarray(jc.maha)[acc][same], rtol=1e-4,
           atol=1e-3)
     # linearize on identical correspondences
-    jc_t = tg.Correspondences(to_torch(np.asarray(jc.tgt_idx)).long(),
+    jidx = to_torch(np.asarray(jc.tgt_idx)).long()
+    jc_t = tg.Correspondences(jidx, to_torch(tgt)[jidx],
                               to_torch(np.asarray(jc.maha)),
                               to_torch(np.asarray(jc.weight)),
                               torch.tensor(int(jc.count)))
-    H, b, e = tg.linearize(to_torch(src), to_torch(tgt), jc_t, to_torch(T))
+    H, b, e = tg.linearize(to_torch(src), jc_t, to_torch(T))
     Hj, bj, ej = jg.linearize(jnp.asarray(src), jnp.asarray(tgt), jc,
                               jnp.asarray(T))
     # sums over 512 pairs of terms up to ~1e4 (Mahalanobis weights ~1e3
@@ -335,7 +336,7 @@ def test_correspondences_and_linearize_match_jax(rng):
     close(H, Hj, rtol=1e-4, atol=1e-2)
     close(b, bj, rtol=1e-4, atol=1e-3)
     close(e, ej, rtol=1e-4)
-    close(tg.compute_error(to_torch(src), to_torch(tgt), jc_t, to_torch(T)),
+    close(tg.compute_error(to_torch(src), jc_t, to_torch(T)),
           jg.compute_error(jnp.asarray(src), jnp.asarray(tgt), jc,
                            jnp.asarray(T)), rtol=1e-4)
 
