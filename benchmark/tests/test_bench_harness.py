@@ -47,6 +47,19 @@ def test_every_metric_and_config_has_its_file():
         load_config(overrides=conf["dlio"])
 
 
+def test_walk_replay_drives_the_live_cells_walk():
+    """Both walk cells make the same path and scene from a seed."""
+    mixes = {}
+    for name in ("walk", "walk_replay"):
+        with open(os.path.join(REPO, "benchmark", "traffic",
+                               f"{name}.json")) as f:
+            mixes[name] = json.load(f)
+    for key in ("path", "scene"):
+        assert mixes["walk_replay"][key] == mixes["walk"][key], key
+    assert mixes["walk_replay"]["mode"] == "replay"
+    assert mixes["walk_replay"]["batch"] == 8
+
+
 def test_unknown_cell_is_refused():
     with pytest.raises(KeyError):
         spec.find_cell("no.such.cell")
