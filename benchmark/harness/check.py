@@ -12,24 +12,20 @@ names, each against its limit, and prints the rest:
   scan before (so that drift does not add up): the deskew and the
   registration of a typical scan;
 - ``pose_jumps``: the window's scans whose error, taken so, passes the
-  configuration's TSDF truncation: a scan placed that far off writes its
-  surfaces outside the band of those already in the map (exact: limit 0);
+  map backend's ``jump_m``: a scan placed that far off writes its
+  surfaces out of place in the map (exact: limit 0);
 - ``ate_m``: the RMS position error of the window's poses against the
   path after a rigid alignment (the port's ``synthetic.ate_rmse``, worked
   out again): drift, printed (the control's rounding reads as much as a
   sound run's drift);
-- ``map_gap``: the relative L1 gap of the map's (weight, weight x
-  distance) against a plain fusion of every scan the program fused, at the
-  poses it reported (``reference.tsdf``); the undeskewed sweeps as they
-  came, the deskewed ones moved within the sweep by the path's own motion;
-- ``map_block_gap``: the same over 8^3-voxel blocks (for deskewed sweeps,
-  where the program's own in-sweep motion and the path's differ by
-  millimetres, enough to move a few percent of the samples across a
-  voxel's face).
+- the map's numbers, from the module of the configuration's map backend
+  (``maps/<dlio.map_backend>.py``, found by ``spec.map_module``): its
+  ``numbers(rec, checks)`` and ``control(rec, checks)``, for the maps a
+  traffic file's ``checks`` names.
 
-The pose numbers are worked out in every cell; a traffic file's
-``checks`` names which of the two maps its cell makes (``map``,
-``map_blocks``).
+The pose numbers are worked out in every cell. The helpers that place a
+scan's points in the world (``scan_index``, ``wire_points``,
+``world_points``) are here, for every backend's reference.
 """
 
 from __future__ import annotations
@@ -39,13 +35,8 @@ import math
 import numpy as np
 import torch
 
+from benchmark.harness import spec
 from benchmark.reference import truth
-from benchmark.reference.tsdf import (
-    ReferenceTsdf,
-    by_block,
-    map_gap,
-    payload_voxels,
-)
 
 
 def scan_index(stamps, sensor) -> np.ndarray:
@@ -74,7 +65,7 @@ def pose_numbers(rec, R_est=None, p_est=None) -> tuple:
     if R_est is None:
         R_est, p_est = truth.quat_to_mat(rows[:, 4:8]), rows[:, 1:4]
     err = truth.relative_error(idx, R_est, p_est, R_gt, p_gt, 1)
-    jump = float(rec.dlio["tsdf"]["truncation"])
+    jump = _maps(rec).jump_m(rec.dlio)
     out = {"missing_poses": int(handed - len(np.unique(idx))),
            "pose_err_m": float(np.median(err)) if len(err) else float("inf"),
            "pose_jumps": int(np.sum(err > jump)) if len(err) else 1,
@@ -97,7 +88,7 @@ def wire_points(xyz: np.ndarray) -> np.ndarray:
     return np.where(ok[:, None], out, np.nan)
 
 
-def _world(rec, i, row, dev):
+def world_points(rec, i, row, dev):
     """Scan ``i``'s points in the world, as the program's pose ``row``
     places them; valid rows after the configuration's crop box."""
     header, xyz, pt = rec.scans_by_index[i]
@@ -124,21 +115,8 @@ def _world(rec, i, row, dev):
     return x @ R.T + p, valid, p
 
 
-def reference_map(rec, round_fn=None):
-    """The plain fusion of every scan the program fused, in its order, at
-    the poses it reported: (voxel ids, weight, weight x distance)."""
-    dev = rec.ref_device
-    ref = ReferenceTsdf(rec.dlio["tsdf"], dev, round_fn)
-    idx = scan_index(rec.traj[:, 0], rec.sensor)
-    for i, row in zip(idx, rec.traj):
-        pts, valid, origin = _world(rec, int(i), row, dev)
-        ref.fuse(pts, valid, origin)
-    return ref.ids, ref.w, ref.ws
-
-
-def _program_map(rec):
-    return payload_voxels(*(torch.as_tensor(a, device=rec.ref_device)
-                            for a in rec.payload))
+def _maps(rec):
+    return spec.map_module(rec.dlio["map_backend"])
 
 
 def control(rec, checks) -> dict:
@@ -150,12 +128,7 @@ def control(rec, checks) -> dict:
     out, err = pose_numbers(rec, r32(R_gt), r32(p_gt))
     out = {k: out[k] for k in ("pose_err_m", "pose_jumps", "ate_m")}
     out["pose_err_max_m"] = float(err.max()) if len(err) else None
-    if "map" in checks or "map_blocks" in checks:
-        ref, ctl = reference_map(rec), reference_map(rec, to_tf32)
-        if "map" in checks:
-            out["map_gap"] = map_gap(ctl, ref)
-        if "map_blocks" in checks:
-            out["map_block_gap"] = map_gap(by_block(ctl), by_block(ref))
+    out.update(_maps(rec).control(rec, checks))
     return out
 
 
@@ -164,12 +137,7 @@ def compare(rec, checks):
     per-scan pose errors."""
     out, err = pose_numbers(rec)
     out["lost_keyframes"] = int(rec.lost_keyframes)
-    if "map" in checks or "map_blocks" in checks:
-        prog, ref = _program_map(rec), reference_map(rec)
-        if "map" in checks:
-            out["map_gap"] = map_gap(prog, ref)
-        if "map_blocks" in checks:
-            out["map_block_gap"] = map_gap(by_block(prog), by_block(ref))
+    out.update(_maps(rec).numbers(rec, checks))
     return out, err
 
 

@@ -15,7 +15,10 @@ The entry the window drives is the port's own:
 Set-up is the ``SlamSystem`` as the CLI builds it, ``warmup()``, and the
 traffic's ``setup_data_s`` seconds of scans through the same entry. The
 window opens after a ``torch.cuda.synchronize()`` and closes at the first
-batch (or scan) boundary after ``seconds``, after another.
+batch (or scan) boundary after ``seconds``, after another. Then the
+trajectory is flushed and the map taken by ``capture`` of the
+configuration's map backend module (``maps/<dlio.map_backend>.py``),
+before the system is freed.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 
 from benchmark.gen.dataset import SyntheticDataset
 from benchmark.gen.producer import Prefetch, make_sensor
+from benchmark.harness import spec
 from benchmark.harness.spans import Spans
 from benchmark.harness.trace import Stretch
 
@@ -50,7 +54,7 @@ class Record:
     memory_peak_bytes: int = 0
     # for the comparison
     traj: np.ndarray | None = None
-    payload: tuple | None = None
+    payload: object = None         # the map backend module's capture
     lost_keyframes: int = 0
     scans_by_index: dict | None = None
     sensor: object = None
@@ -208,13 +212,11 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
         rec.counters = {k: now[k] - base[k] for k in now}
         rec.lost_keyframes = rec.counters["lost_keyframes"]
         rec.traj = slam.flush()
-        st = slam.tsdf
-        if st is not None and {"map", "map_blocks"} & set(traffic["checks"]):
-            rec.payload = (st.dir_keys.cpu(), st.weight.cpu(),
-                           st.wsum.cpu(), st.dir_slots.cpu())
+        rec.payload = spec.map_module(config["dlio"]["map_backend"]) \
+            .capture(slam, traffic["checks"])
         rec.extra["loop_closures_total"] = slam.loop_closures
         rec.extra["submap_overflow_total"] = slam.odometry.submap_overflow
-        del slam, st
+        del slam
     finally:
         prefetch.close()
     gc.collect()

@@ -1,9 +1,11 @@
 """Finds a cell's parts by name: its entry in ``BENCHMARK.json``, its
 configuration file, its traffic mix (``traffic/<name>.json``), its limits
-(``limits/<cell>.json``) and the readers of its metrics
-(``metrics/<metric>.py``, each with ``read(record) -> float | None``).
-A later cell, configuration, mix or metric is a new file and a new entry,
-and no edit here."""
+(``limits/<cell>.json``), the readers of its metrics
+(``metrics/<metric>.py``, each with ``read(record) -> float | None``) and
+the map comparison of its configuration's map backend
+(``maps/<dlio.map_backend>.py``, with ``capture``, ``numbers``,
+``control`` and ``jump_m``). A later cell, configuration, mix, metric or
+map backend is a new file and a new entry, and no edit here."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import os
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO = os.path.dirname(BENCH_DIR)
+MAPS_DIR = os.path.join(BENCH_DIR, "maps")
 
 
 @dataclasses.dataclass
@@ -45,7 +48,9 @@ def _applies(metric: dict, cell: str, reported: set) -> bool:
 
 def find_cell(name: str, bench: dict | None = None,
               repo: str = REPO) -> Cell:
-    """The cell ``name`` of ``BENCHMARK.json``; raises KeyError if none."""
+    """The cell ``name`` of ``BENCHMARK.json``; raises KeyError if none,
+    and FileNotFoundError if its configuration's map backend has no
+    module (before a card is asked for or a system is built)."""
     bench = bench or load_benchmark(repo)
     work = {w["name"]: w for w in bench["workloads"]}
     if name not in work:
@@ -54,6 +59,7 @@ def find_cell(name: str, bench: dict | None = None,
     w = work[name]
     confs = {c["name"]: c for c in bench["configs"]}
     config = _json(repo, confs[w["config"]]["file"])
+    map_module(config["dlio"]["map_backend"])
     traffic = _json(BENCH_DIR, "traffic", f"{w['traffic']}.json")
     limits = _json(BENCH_DIR, "limits", f"{name}.json")
     e2e = [m for m in bench["end_to_end"]
@@ -65,12 +71,25 @@ def find_cell(name: str, bench: dict | None = None,
                 per_layer)
 
 
+def _load(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(metric: str):
     """``read`` of ``metrics/<metric>.py``."""
     path = os.path.join(BENCH_DIR, "metrics", f"{metric}.py")
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + metric.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, "benchmark_metric_"
+                 + metric.replace(".", "_").replace("-", "_")).read
+
+
+def map_module(backend: str):
+    """``maps/<backend>.py``, the map comparison of a configuration whose
+    ``dlio.map_backend`` is ``backend``."""
+    path = os.path.join(MAPS_DIR, f"{backend}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"map backend {backend!r} has no comparison: {path} is missing")
+    return _load(path, "benchmark_map_" + backend)

@@ -86,9 +86,14 @@ class AtLeast(runner.Window):
         return super().step(data_stamp, n_scans)
 
 
-def run_tiny(cell_name, hooks=None, seconds=4.0, seed=2 ** 31 + 21):
+def run_tiny(cell_name, hooks=None, seconds=4.0, seed=2 ** 31 + 21,
+             edit=None):
+    """The tiny cell's run and its numbers; ``edit(config)`` may change
+    the configuration first."""
     torch.set_num_threads(2)
     cell, cfg = tiny(cell_name)
+    if edit is not None:
+        edit(cfg)
     with mock.patch.object(runner, "Window", AtLeast):
         rec = runner.run(cfg, cell.traffic, seed, seconds, False,
                          torch.device("cpu"), time.perf_counter(),
@@ -248,6 +253,49 @@ def test_control_fails_the_limits():
     assert correct(cell, numbers)
     ctl = check.control(rec, cell.traffic["checks"])
     assert not correct(cell, {**numbers, **ctl})
+
+
+# a map comparison for the occupancy backend, standing in for one in
+# ``maps/``: it keeps the type of the state it is handed
+STAND_IN = '''
+def jump_m(dlio):
+    return 2.0 * float(dlio["occupancy"]["voxel_size"])
+
+
+def capture(slam, checks):
+    st = slam.tsdf
+    return {"state": type(st).__name__, "logodds": st.logodds.cpu()}
+
+
+def numbers(rec, checks):
+    return {"occupied_voxels": int((rec.payload["logodds"] > 0).sum())}
+
+
+def control(rec, checks):
+    return {}
+'''
+
+
+def test_map_backend_found_by_name(tmp_path, monkeypatch):
+    """The walk on the occupancy backend runs to its end with a stand-in
+    module as the only map comparison there is (no ``tsdf.py`` beside it):
+    the runner and the comparison read the map only through it."""
+    (tmp_path / "occupancy.py").write_text(STAND_IN)
+
+    def occupancy(cfg):
+        # after the cell is found: its own configuration's is in maps/
+        monkeypatch.setattr(spec, "MAPS_DIR", str(tmp_path))
+        cfg["dlio"]["map_backend"] = "occupancy"
+        cfg["dlio"]["occupancy"].update(max_blocks=8192, scan_block_cap=2048)
+
+    cell, numbers, rec = run_tiny(LIVE, edit=occupancy)
+    assert rec.scans >= MIN_SCANS
+    assert rec.payload["state"] == "OccupancyState"
+    assert numbers["occupied_voxels"] > 0
+    assert numbers["missing_poses"] == 0 == numbers["lost_keyframes"]
+    # the cell's limits name the TSDF's number, which this map lacks
+    assert "map_block_gap" not in numbers
+    assert not correct(cell, numbers)
 
 
 @pytest.mark.cuda

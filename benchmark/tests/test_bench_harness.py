@@ -1,8 +1,10 @@
 """The harness's lookup by name, its statistics, its JAX check and its
 refusal to measure without a card (CPU)."""
 
+import copy
 import json
 import os
+import re
 import sys
 
 import pytest
@@ -12,11 +14,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 sys.path.insert(0, REPO)
 
 from benchmark import run  # noqa: E402
-from benchmark.harness import spec, stats  # noqa: E402
+from benchmark.harness import check, spec, stats  # noqa: E402
 
 with open(os.path.join(REPO, "BENCHMARK.json")) as _f:
     BENCH = json.load(_f)
 CELLS = [w["name"] for w in BENCH["workloads"]]
+# numbers of check.compare that every backend has; the rest are the map's
+POSE_NUMBERS = {"missing_poses", "lost_keyframes", "pose_err_m",
+                "pose_jumps", "ate_m"}
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -25,13 +30,16 @@ def test_cells_found_by_name(cell):
     w = next(w for w in BENCH["workloads"] if w["name"] == cell)
     assert c.traffic["mode"] in ("replay", "live")
     assert set(c.limits) >= {"missing_poses", "lost_keyframes"}
-    assert set(c.limits) & {"map_gap", "map_block_gap"}
+    assert set(c.limits) - POSE_NUMBERS          # the map is compared
     assert c.limits["missing_poses"] == 0 == c.limits["lost_keyframes"]
     assert c.config["name"] == w["config"]
     assert "setup_s" in {m["name"] for m in c.end_to_end}
     assert len(c.end_to_end) >= 2 and c.per_layer
     for m in c.end_to_end + c.per_layer:
         assert callable(spec.reader(m["name"]))
+    maps = spec.map_module(c.config["dlio"]["map_backend"])
+    for f in ("capture", "numbers", "control", "jump_m"):
+        assert callable(getattr(maps, f)), f
 
 
 def test_every_metric_and_config_has_its_file():
@@ -65,6 +73,42 @@ def test_unknown_cell_is_refused():
         spec.find_cell("no.such.cell")
 
 
+def test_map_backend_without_module_fails_at_find_cell(tmp_path,
+                                                       monkeypatch):
+    """A configuration whose map backend has no ``maps/<backend>.py``
+    fails where the cell is found, naming the file, before ``run.main``
+    asks for a card."""
+    bench = copy.deepcopy(BENCH)
+    conf = bench["configs"][0]
+    with open(os.path.join(REPO, conf["file"])) as f:
+        body = json.load(f)
+    body["dlio"]["map_backend"] = "occupancy"
+    path = tmp_path / "occupancy_config.json"
+    path.write_text(json.dumps(body))
+    conf["file"] = str(path)
+    cell = next(w["name"] for w in bench["workloads"]
+                if w["config"] == conf["name"])
+    missing = re.escape(os.path.join("benchmark", "maps", "occupancy.py"))
+    with pytest.raises(FileNotFoundError, match=missing):
+        spec.find_cell(cell, bench)
+
+    def no_card(n):
+        raise AssertionError("a card was asked for")
+
+    monkeypatch.setattr(spec, "load_benchmark", lambda repo=None: bench)
+    monkeypatch.setattr(run, "require_cards", no_card)
+    with pytest.raises(FileNotFoundError, match=missing):
+        run.main(["--workload", cell, "--seed", "1", "--seconds", "1"])
+
+
+def test_a_limited_number_missing_is_not_correct():
+    limits = {"missing_poses": 0, "map_block_gap": 0.0045}
+    assert check.judge({"missing_poses": 0, "map_block_gap": 0.001},
+                       limits)[1]
+    checks, ok = check.judge({"missing_poses": 0, "occupied": 5.0}, limits)
+    assert not ok and set(checks) == {"missing_poses"}
+
+
 def test_window_rate_counts_a_stall():
     """100 scans at 10 ms each and one stall of 4 s: the whole-window rate
     is 100 / 5 s; a median of per-chunk slopes would read 100 scans/s."""
@@ -95,16 +139,22 @@ def test_jax_check_compares_whole_top_level_names():
 
 
 def test_nothing_loaded_imports_jax():
-    """A fresh process that loads the harness, the reference and the
-    system under test holds no JAX module."""
+    """A fresh process that loads the harness, the reference, every
+    configuration's map comparison and the system under test holds no JAX
+    module."""
     import subprocess
 
+    backends = sorted({spec.find_cell(c).config["dlio"]["map_backend"]
+                       for c in CELLS})
     code = ("import sys; sys.path.insert(0, %r); "
             "import benchmark.run as r, benchmark.harness.runner, "
             "benchmark.harness.check, benchmark.gen.producer, "
             "noetic_slam_tpu_torch.runtime.slam, "
             "noetic_slam_tpu_torch.io.replay; "
-            "print(r.forbidden_modules(sys.modules))" % REPO)
+            "from benchmark.harness import spec; "
+            "[spec.map_module(b) for b in %r]; "
+            "print(r.forbidden_modules(sys.modules))"
+            % (REPO, backends))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, check=True).stdout
     assert out.strip() == "[]"
