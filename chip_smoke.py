@@ -57,6 +57,15 @@ Phases, each printing its own line:
    the masked loop's that ran before D (tests/test_torch_lm_search.py's
    oracle) as its yardstick, each by CUDA events and by host wall time a
    call;
+   6d: the step's front as a CUDA graph over ``FRONT_SCANS`` more
+   main-path scans from a fresh ``OdometryPipeline`` (its ``warmup()``
+   captures the graph): the first half with each scan's front also run
+   eagerly (``models.odometry.step_front``) on the same state and input,
+   every field bitwise equal; the second half with the span recorder on,
+   for the ``odometry.front`` host ms a scan; ``front_captures`` (must be
+   1) and ``front_replays`` (one a front call); and one front call on the
+   last checked scan's input by graph and eagerly, host ms until it
+   returns and until the card has finished;
 7. the occupancy path: the first ``OCC_SCANS`` of those scans through
    ``OdometryPipeline(cfg.replace(map_backend="occupancy"), with_tsdf=True)``
    at the ``OccupancyConfig`` defaults, counters reset just before it;
@@ -605,6 +614,7 @@ def phase_nn_main_shape(kept):
 
 
 LM_SCANS = 10            # main-path scans of phase 6c
+FRONT_SCANS = 40         # main-path scans of phase 6d
 LM_VERIFY_PAIRS = 4096   # a keyframe cloud of phase 9's system (verify_loop)
 LM_BYTES_PER_PAIR = 60   # source point 12 B, target row 12 B, weight 36 B
 LM_OPS_PER_PAIR = 29     # f32 operations of one candidate's term e^T M e
@@ -775,6 +785,104 @@ def phase_lm(cfg, sim, scans) -> dict:
     row.update(launches=launches["lm_search_fused"], tally=tally,
                loop_ms=main["loop_ms"], loop_wall_ms=main["loop_wall_ms"],
                rows=rows)
+    return row
+
+
+def _host_ms(fn, iters: int) -> tuple[float, float]:
+    """(host ms until a call returns, host ms until the card has finished
+    it), each averaged over ``iters`` calls from a drained card."""
+    import torch
+
+    ret = done = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        ret += t1 - t0
+        done += time.perf_counter() - t0
+    return 1e3 * ret / iters, 1e3 * done / iters
+
+
+def phase_front(cfg, sim, scans) -> dict:
+    """Phase 6d (module docstring)."""
+    import torch
+
+    from noetic_slam_tpu_torch.models.odometry import Front, step_front
+    from noetic_slam_tpu_torch.runtime.pipeline import OdometryPipeline
+    from noetic_slam_tpu_torch.runtime.profiling import RECORDER
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    n = min(FRONT_SCANS, len(scans))
+    half = n // 2
+    pipe = OdometryPipeline(cfg, with_tsdf=True)
+    pipe.warmup()
+    _check((pipe.front_captures, pipe.front_replays) == (1, 3),
+           f"front: warmup() captured {pipe.front_captures}, replayed "
+           f"{pipe.front_replays} (want 1, 3)")
+    step, kept, differing = pipe._step, {}, []
+
+    def checking(carry, inp):
+        state = carry[0]
+        got, want = step.front(state, inp), step_front(cfg, state, inp)
+        differing.extend(k for k, x, y in zip(Front._fields, got, want)
+                         if not torch.equal(bits(x), bits(y)))
+        kept["args"] = (state, inp)
+        return step(carry, inp)
+
+    imu_i = 0
+
+    def run(lo, hi):
+        nonlocal imu_i
+        for h, xyz, pt in scans[lo:hi]:
+            while (imu_i < len(sim.imu_stamps)
+                   and sim.imu_stamps[imu_i] <= h + pt.max() + 0.02):
+                pipe.push_imu(sim.imu_stamps[imu_i], sim.imu_ang[imu_i],
+                              sim.imu_acc[imu_i])
+                imu_i += 1
+            pipe.process_scan(h, xyz, pt)
+
+    pipe._step = checking
+    run(0, half)
+    pipe._step = step
+    _check(not differing, f"front: graph and eager fronts differ in "
+           f"{sorted(set(differing))}")
+    torch.cuda.synchronize()
+    RECORDER.enable()
+    try:
+        run(half, n)
+        torch.cuda.synchronize()
+    finally:
+        RECORDER.disable()
+    tab = RECORDER.stage_table()
+    per_scan = {k: 1e3 * tab[k]["total_s"] / (n - half)
+                for k in ("odometry.front", "pipeline.scan")}
+    captures, replays = step.front_captures, step.front_replays
+    _check(captures == 1, f"front: {captures} captures (want 1)")
+    _check(replays == 3 + 2 * half + (n - half),
+           f"front: {replays} replays (want {3 + 2 * half + n - half})")
+    state, inp = kept["args"]
+    graph_ms = _host_ms(lambda: step.front(state, inp), 20)
+    eager_ms = _host_ms(lambda: step_front(cfg, state, inp), 20)
+    traj = pipe.flush()
+    _check(len(traj) == n and bool(np.isfinite(traj).all()),
+           f"front: {len(traj)} of {n} scans, or a non-finite pose")
+    row = {"scans": n, "checked": half, "captures": captures,
+           "replays": replays, "front_ms_per_scan": per_scan[
+               "odometry.front"],
+           "scan_ms": per_scan["pipeline.scan"],
+           "graph_call_ms": graph_ms, "eager_call_ms": eager_ms}
+    print(f"[6d front graph] {n} main-path scans: captures {captures}, "
+          f"replays {replays}; {half} scans bitwise the eager front (no "
+          f"field differs); odometry.front {row['front_ms_per_scan']:.3f} "
+          f"ms host a scan of {row['scan_ms']:.3f} (pipeline.scan, "
+          f"{n - half} scans); one call on the last checked input: graph "
+          f"{graph_ms[0]:.3f} ms to return / {graph_ms[1]:.3f} ms to the "
+          f"card's end, eager {eager_ms[0]:.3f} / {eager_ms[1]:.3f} ms",
+          flush=True)
     return row
 
 
@@ -3480,6 +3588,7 @@ def main(argv=None) -> int:
     kernels[0].update(phase_nn_main_shape(kept))
     del kept
     lm_row = phase_lm(cfg, sim, scans)
+    lm_row["front"] = phase_front(cfg, sim, scans)
     occ_pipe, occ_traj, occ_launches = phase_occupancy_path(
         cfg, sim, scans, OCC_SCANS, args.profile)
     phase_map_products(cfg.tsdf, tsdf_pipe.tsdf_state, tsdf_traj,

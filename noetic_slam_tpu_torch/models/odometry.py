@@ -18,7 +18,10 @@ runs the same computation eagerly on fixed-shape tensors:
   grid index over the submap that ``OdomState`` carries
   (``nn_engine="grid"``, ``ops.gridnn``), rebuilt with every submap;
 - registration is ``align_fn`` (default ``ops.gicp.gicp_align``); the
-  sharded path passes ``parallel.registration.make_sharded_align``.
+  sharded path passes ``parallel.registration.make_sharded_align``;
+- the front, everything before the step's first host read (intake,
+  deskew, voxel filter, covariances, IMU propagation: ``step_front``), is
+  replayed on the card as one CUDA graph per input signature.
 
 Times in ``StepInput``/state are float32 seconds relative to the current
 scan's header stamp, as in the JAX module.
@@ -519,6 +522,207 @@ def gather_submap(cfg: DlioConfig, state: OdomState, mask: Tensor):
 
 
 # ---------------------------------------------------------------------------
+# The step's front: intake, deskew, voxel filter, covariances, propagation
+# ---------------------------------------------------------------------------
+
+class FrontState(NamedTuple):
+    """The ``OdomState`` fields the front reads (an ``OdomState`` serves
+    as one too)."""
+    ba: Tensor
+    bg: Tensor
+    spaciousness: Tensor
+    density: Tensor
+    source_density: Tensor
+    num_scans: Tensor
+    first_opt_done: Tensor
+    prev_stamp_off: Tensor
+    prop_off: Tensor
+    lidar_q: Tensor
+    lidar_p: Tensor
+    prev_vel: Tensor
+    kf_count: Tensor
+    T: Tensor
+    q: Tensor
+    p: Tensor
+    v: Tensor
+
+
+class Front(NamedTuple):
+    """What the rest of the step takes from the front."""
+    q: Tensor             # observer state after the IMU-rate propagation
+    p: Tensor
+    v: Tensor
+    ds_xyz: Tensor        # (Nds, 3) voxel-filtered world cloud
+    ds_valid: Tensor      # (Nds,)
+    src_cov: Tensor       # (Nds, 6)
+    src_density: Tensor   # ()
+    threshD: Tensor       # () adaptive keyframe distance
+    max_corr: Tensor      # () adaptive correspondence distance
+    sp_lpf: Tensor        # () spaciousness / density LPF states
+    den_lpf: Tensor
+    T_prior: Tensor       # (4, 4)
+    scan_stamp: Tensor    # ()
+    prev_stamp: Tensor    # ()
+    sweep_end: Tensor     # ()
+    deskew_ok: Tensor     # () bool
+    world_pts: Tensor     # (N, 3) deskewed (or rigid) world cloud
+    world_valid: Tensor   # (N,)
+    enough_points: Tensor  # () bool
+    first_scan: Tensor    # () bool
+    prop_boundary: Tensor  # ()
+
+
+def step_front(cfg: DlioConfig, state, inp: StepInput) -> Front:
+    """The step up to its first host read: intake and crop, adaptive
+    parameters, IMU conditioning, deskew and prior, voxel filter, source
+    covariances, observer propagation. Reads the ``FrontState`` fields of
+    ``state``, writes nothing, and reads nothing on the host, so that the
+    card can replay it as one CUDA graph (``make_odometry_step``)."""
+    cap = cfg.capacity
+    dev = state.q.device
+    R_ext = np.asarray(cfg.extrinsics.baselink2lidar_R,
+                       np.float32).reshape(3, 3)
+    t_ext = np.asarray(cfg.extrinsics.baselink2lidar_t, np.float32)
+    T_ext_np = np.eye(4, dtype=np.float32)
+    T_ext_np[:3, :3], T_ext_np[:3, 3] = R_ext, t_ext
+    ext_R = const(tuple(map(tuple, R_ext)), dev)
+    ext_t = const(tuple(t_ext), dev)
+    T_ext = const(tuple(map(tuple, T_ext_np)), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    # ---- intake: crop + mask ----------------------------------------------
+    with span("odometry.intake_deskew"):
+        valid_in = inp.valid
+        scan = Scan(inp.xyz, inp.t, valid_in,
+                    valid_in.sum().to(torch.int32))
+        scan = crop_box(scan, cfg.preproc.crop_size)
+
+        threshD, max_corr, sp_lpf, den_lpf = compute_adaptive(
+            cfg, state, scan)
+        w_corr, a_corr = condition_imu(cfg, inp.imu_stamps, inp.imu_ang,
+                                       inp.imu_acc, state.ba, state.bg)
+
+        # deskew / prior
+        prep = prepare_scan(scan, cap.max_deskew_frames)
+        scan_stamp = torch.where(inp.deskew, prep.scan_stamp,
+                                 torch.zeros((), **f32))
+        sweep_end = torch.where(
+            inp.deskew,
+            take(prep.unique_t, torch.clamp(prep.unique_count - 1, 0,
+                                            cap.max_deskew_frames - 1)),
+            scan_stamp)
+        sweep_end = torch.maximum(sweep_end, scan_stamp)
+        prev_stamp = state.prev_stamp_off - inp.header_delta
+        prop_start = state.prop_off - inp.header_delta
+
+        window = imu_ops.slice_imu_window(
+            inp.imu_stamps, w_corr, a_corr, inp.imu_count, prev_stamp,
+            sweep_end, cap.max_imu_window)
+        frames_q, frames_p, imu_ok = imu_ops.integrate_imu(
+            window, prev_stamp, state.lidar_q, state.lidar_p,
+            state.prev_vel, prep.unique_t, cfg.gravity)
+
+        first_scan = state.kf_count == 0
+        med = torch.clamp(prep.median_idx, 0, cap.max_deskew_frames - 1)
+        T_imu = make_se3(take(frames_q, med), take(frames_p, med))
+        use_imu = imu_ok & ~first_scan
+        T_prior = torch.where(use_imu, T_imu, state.T)
+        deskew_ok = inp.deskew & use_imu
+
+        world_deskewed = deskew_points(prep, frames_q, frames_p, ext_R,
+                                       ext_t)
+        world_rigid = transform_cloud(prep.xyz, prep.valid,
+                                      T_prior @ T_ext)
+        world_pts = torch.where(deskew_ok, world_deskewed, world_rigid)
+        world_pts = torch.where(prep.valid[:, None], world_pts, SENTINEL)
+
+    # ---- voxel filter -------------------------------------------------------
+    with span("odometry.voxel"):
+        if cfg.preproc.voxelize:
+            ds_xyz, ds_valid, _ = voxel_downsample(
+                world_pts, prep.valid, cfg.preproc.voxel_res,
+                cap.max_ds_points)
+        else:
+            ds_xyz = world_pts[: cap.max_ds_points]
+            ds_valid = prep.valid[: cap.max_ds_points]
+        enough_points = ds_valid.sum() > cfg.gicp.min_num_points
+
+    # ---- source covariances -------------------------------------------------
+    with span("odometry.covariances"):
+        if cfg.gicp.cov_engine == "radius":
+            src_cov, src_density = gicp_ops.radius_covariances(
+                ds_xyz, ds_valid, cfg.gicp.cov_radius)
+        else:
+            src_cov, src_density = gicp_ops.plane_covariances(
+                ds_xyz, ds_valid, cfg.gicp.k_correspondences,
+                use_grid=cfg.gicp.nn_engine == "grid",
+                cell=4.0 * cfg.preproc.voxel_res)
+
+    # ---- observer IMU-rate propagation over the inter-scan interval --------
+    with span("odometry.propagate"):
+        prop_window = imu_ops.slice_imu_window(
+            inp.imu_stamps, w_corr, a_corr, inp.imu_count, prop_start,
+            sweep_end, cap.max_imu_window)
+        q_prop, p_prop, v_prop = imu_ops.propagate_state_batch(
+            state.q, state.p, state.v, prop_window, prop_window.count,
+            cfg.gravity, start_exclusive=prop_start)
+        if cfg.geo.max_velocity > 0:
+            vn = torch.linalg.vector_norm(v_prop)
+            v_prop = torch.where(
+                vn > cfg.geo.max_velocity,
+                v_prop * (cfg.geo.max_velocity
+                          / torch.clamp(vn, min=1e-9)),
+                v_prop)
+        last_idx = torch.clamp(prop_window.count - 1, 0,
+                               cap.max_imu_window - 1)
+        prop_boundary = torch.where(
+            prop_window.count > 0,
+            torch.maximum(take(prop_window.stamps, last_idx),
+                          prop_start),
+            torch.maximum(sweep_end, prop_start))
+        fod = state.first_opt_done
+        q = torch.where(fod, q_prop, state.q)
+        p = torch.where(fod, p_prop, state.p)
+        v = torch.where(fod, v_prop, state.v)
+
+    return Front(q=q, p=p, v=v, ds_xyz=ds_xyz, ds_valid=ds_valid,
+                 src_cov=src_cov, src_density=src_density, threshD=threshD,
+                 max_corr=max_corr, sp_lpf=sp_lpf, den_lpf=den_lpf,
+                 T_prior=T_prior, scan_stamp=scan_stamp,
+                 prev_stamp=prev_stamp, sweep_end=sweep_end,
+                 deskew_ok=deskew_ok, world_pts=world_pts,
+                 world_valid=prep.valid, enough_points=enough_points,
+                 first_scan=first_scan, prop_boundary=prop_boundary)
+
+
+class _FrontGraph(NamedTuple):
+    static: list          # the graph's input buffers: StepInput, FrontState
+    graph: object         # torch.cuda.CUDAGraph
+    out: Front            # the graph's output buffers
+
+
+def _capture_front(cfg: DlioConfig, srcs: list, has_pt: bool,
+                   dev: torch.device) -> _FrontGraph:
+    """``step_front`` on static copies of ``srcs`` (the input's tensors,
+    then the ``FrontState`` fields) captured as one CUDA graph, after one
+    eager run on a side stream (``const``'s uploads, the allocator's and
+    the libraries' first use). A capture that fails raises."""
+    static = [s.clone(memory_format=torch.contiguous_format) for s in srcs]
+    n_in = 4 if has_pt else 3
+    inp = StepInput(*static[:n_in])
+    st = FrontState(*static[n_in:])
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step_front(cfg, st, inp)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = step_front(cfg, st, inp)
+    return _FrontGraph(static, graph, out)
+
+
+# ---------------------------------------------------------------------------
 # The per-scan step
 # ---------------------------------------------------------------------------
 
@@ -530,7 +734,17 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
     ``align_fn(src_xyz, src_valid, src_cov, tgt_xyz, tgt_cov, cfg,
     max_corr_dist=, target_grid=, target_count=, syncs=) -> AlignResult``
     defaults to the one-device ``gicp_align``; the distributed path passes
-    ``parallel.registration.make_sharded_align(mesh)``."""
+    ``parallel.registration.make_sharded_align(mesh)``.
+
+    The front (``step_front``, the span ``odometry.front``) runs eagerly
+    on the CPU. On the card it is one CUDA graph per input signature (the
+    shapes and dtypes of the input's tensors, and the device), captured
+    at the signature's first use and replayed on every use: the input and
+    the ``FrontState`` fields are copied into the graph's buffers, and
+    every output is cloned after the replay, so that no graph buffer
+    outlives the call. ``step.front(state, inp)`` is that front;
+    ``step.front_captures`` and ``step.front_replays`` count captures and
+    replays (the capturing call replays too)."""
     if cfg.gicp.nn_engine not in ("brute", "grid"):
         raise ValueError(f"nn_engine={cfg.gicp.nn_engine!r}: expected "
                          "'brute' or 'grid'")
@@ -541,112 +755,37 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
     # (2 * max_corr_dist)
     grid_cell = 2.0 * cfg.gicp.max_corr_dist
     cap = cfg.capacity
-    R_ext = np.asarray(cfg.extrinsics.baselink2lidar_R,
-                       np.float32).reshape(3, 3)
-    t_ext = np.asarray(cfg.extrinsics.baselink2lidar_t, np.float32)
-    T_ext_np = np.eye(4, dtype=np.float32)
-    T_ext_np[:3, :3], T_ext_np[:3, 3] = R_ext, t_ext
+    graphs: dict = {}
+
+    def front(state, inp: StepInput) -> Front:
+        if not state.q.is_cuda:
+            return step_front(cfg, state, inp)
+        dev = state.q.device
+        has_pt = inp.pt is not None
+        srcs = [*(inp if has_pt else inp[:3]),
+                *(getattr(state, k) for k in FrontState._fields)]
+        key = (dev, has_pt) + tuple((x.shape, x.dtype) for x in inp[:3])
+        with torch.cuda.device(dev):
+            g = graphs.get(key)
+            if g is None:
+                g = graphs[key] = _capture_front(cfg, srcs, has_pt, dev)
+                step.front_captures += 1
+            for dst, src in zip(g.static, srcs):
+                dst.copy_(src)
+            g.graph.replay()
+            step.front_replays += 1
+            return Front(*(x.clone() for x in g.out))
 
     def step(state: OdomState, inp: StepInput):
         dev = state.q.device
-        ext_R = const(tuple(map(tuple, R_ext)), dev)
-        ext_t = const(tuple(t_ext), dev)
-        T_ext = const(tuple(map(tuple, T_ext_np)), dev)
         f32 = dict(dtype=torch.float32, device=dev)
 
-        # ---- intake: crop + mask ------------------------------------------
-        with span("odometry.intake_deskew"):
-            valid_in = inp.valid
-            scan = Scan(inp.xyz, inp.t, valid_in,
-                        valid_in.sum().to(torch.int32))
-            scan = crop_box(scan, cfg.preproc.crop_size)
-
-            threshD, max_corr, sp_lpf, den_lpf = compute_adaptive(
-                cfg, state, scan)
-            w_corr, a_corr = condition_imu(cfg, inp.imu_stamps, inp.imu_ang,
-                                           inp.imu_acc, state.ba, state.bg)
-
-            # deskew / prior
-            prep = prepare_scan(scan, cap.max_deskew_frames)
-            scan_stamp = torch.where(inp.deskew, prep.scan_stamp,
-                                     torch.zeros((), **f32))
-            sweep_end = torch.where(
-                inp.deskew,
-                take(prep.unique_t, torch.clamp(prep.unique_count - 1, 0,
-                                                cap.max_deskew_frames - 1)),
-                scan_stamp)
-            sweep_end = torch.maximum(sweep_end, scan_stamp)
-            prev_stamp = state.prev_stamp_off - inp.header_delta
-            prop_start = state.prop_off - inp.header_delta
-
-            window = imu_ops.slice_imu_window(
-                inp.imu_stamps, w_corr, a_corr, inp.imu_count, prev_stamp,
-                sweep_end, cap.max_imu_window)
-            frames_q, frames_p, imu_ok = imu_ops.integrate_imu(
-                window, prev_stamp, state.lidar_q, state.lidar_p,
-                state.prev_vel, prep.unique_t, cfg.gravity)
-
-            first_scan = state.kf_count == 0
-            med = torch.clamp(prep.median_idx, 0, cap.max_deskew_frames - 1)
-            T_imu = make_se3(take(frames_q, med), take(frames_p, med))
-            use_imu = imu_ok & ~first_scan
-            T_prior = torch.where(use_imu, T_imu, state.T)
-            deskew_ok = inp.deskew & use_imu
-
-            world_deskewed = deskew_points(prep, frames_q, frames_p, ext_R,
-                                           ext_t)
-            world_rigid = transform_cloud(prep.xyz, prep.valid,
-                                          T_prior @ T_ext)
-            world_pts = torch.where(deskew_ok, world_deskewed, world_rigid)
-            world_pts = torch.where(prep.valid[:, None], world_pts, SENTINEL)
-
-        # ---- voxel filter ---------------------------------------------------
-        with span("odometry.voxel"):
-            if cfg.preproc.voxelize:
-                ds_xyz, ds_valid, _ = voxel_downsample(
-                    world_pts, prep.valid, cfg.preproc.voxel_res,
-                    cap.max_ds_points)
-            else:
-                ds_xyz = world_pts[: cap.max_ds_points]
-                ds_valid = prep.valid[: cap.max_ds_points]
-            enough_points = ds_valid.sum() > cfg.gicp.min_num_points
-
-        # ---- source covariances ---------------------------------------------
-        with span("odometry.covariances"):
-            if cfg.gicp.cov_engine == "radius":
-                src_cov, src_density = gicp_ops.radius_covariances(
-                    ds_xyz, ds_valid, cfg.gicp.cov_radius)
-            else:
-                src_cov, src_density = gicp_ops.plane_covariances(
-                    ds_xyz, ds_valid, cfg.gicp.k_correspondences,
-                    use_grid=use_grid, cell=4.0 * cfg.preproc.voxel_res)
-
-        # ---- observer IMU-rate propagation over the inter-scan interval ------
-        with span("odometry.propagate"):
-            prop_window = imu_ops.slice_imu_window(
-                inp.imu_stamps, w_corr, a_corr, inp.imu_count, prop_start,
-                sweep_end, cap.max_imu_window)
-            q_prop, p_prop, v_prop = imu_ops.propagate_state_batch(
-                state.q, state.p, state.v, prop_window, prop_window.count,
-                cfg.gravity, start_exclusive=prop_start)
-            if cfg.geo.max_velocity > 0:
-                vn = torch.linalg.vector_norm(v_prop)
-                v_prop = torch.where(
-                    vn > cfg.geo.max_velocity,
-                    v_prop * (cfg.geo.max_velocity
-                              / torch.clamp(vn, min=1e-9)),
-                    v_prop)
-            last_idx = torch.clamp(prop_window.count - 1, 0,
-                                   cap.max_imu_window - 1)
-            prop_boundary = torch.where(
-                prop_window.count > 0,
-                torch.maximum(take(prop_window.stamps, last_idx),
-                              prop_start),
-                torch.maximum(sweep_end, prop_start))
-            fod = state.first_opt_done
-            state = state._replace(q=torch.where(fod, q_prop, state.q),
-                                   p=torch.where(fod, p_prop, state.p),
-                                   v=torch.where(fod, v_prop, state.v))
+        with span("odometry.front"):
+            f = front(state, inp)
+        state = state._replace(q=f.q, p=f.p, v=f.v)
+        ds_xyz, ds_valid, src_cov = f.ds_xyz, f.ds_valid, f.src_cov
+        threshD, T_prior, scan_stamp = f.threshD, f.T_prior, f.scan_stamp
+        prev_stamp = f.prev_stamp
 
         zero_i = torch.zeros((), dtype=torch.int64, device=dev)
         zero_diag = (zero_i, torch.zeros((), **f32), zero_i)
@@ -683,7 +822,7 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
                         if use_grid else None)
                 res = align_fn(
                     ds_xyz, ds_valid, src_cov, st.submap_xyz, st.submap_cov,
-                    cfg.gicp, max_corr_dist=max_corr, target_grid=grid,
+                    cfg.gicp, max_corr_dist=f.max_corr, target_grid=grid,
                     target_count=st.submap_count, syncs=syncs)
             with span("odometry.keyframe_submap"):
                 # degenerate-registration gate: fall back to the IMU prior
@@ -715,7 +854,7 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
             return st, (is_kf, (res.iterations, res.error, res.num_corr))
 
         # one read decides both the skip and the bootstrap branch
-        enough, first = syncs.read(enough_points, first_scan)
+        enough, first = syncs.read(f.enough_points, f.first_scan)
         if enough:
             st, (is_kf, diag) = bootstrap(state) if first else register(state)
             row = torch.cat([
@@ -726,8 +865,8 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
             put(st.traj, torch.clamp(st.num_scans, max=cap.max_trajectory - 1),
                 row)
             new_state = st._replace(
-                spaciousness=sp_lpf, density=den_lpf,
-                source_density=src_density, keyframe_thresh_dist=threshD,
+                spaciousness=f.sp_lpf, density=f.den_lpf,
+                source_density=f.src_density, keyframe_thresh_dist=threshD,
                 prev_stamp_off=scan_stamp, num_scans=st.num_scans + 1)
         else:
             # too few points: drop the scan; the observer propagation above
@@ -736,18 +875,21 @@ def make_odometry_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
             is_kf, diag = torch.zeros((), dtype=torch.bool,
                                       device=dev), zero_diag
         new_state = new_state._replace(
-            prop_off=prop_boundary, total_steps=new_state.total_steps + 1)
+            prop_off=f.prop_boundary, total_steps=new_state.total_steps + 1)
 
-        out_cloud = transform_cloud(world_pts, prep.valid, new_state.T_corr)
+        out_cloud = transform_cloud(f.world_pts, f.world_valid,
+                                    new_state.T_corr)
         out = StepOutput(
             pose_q=new_state.q, pose_p=new_state.p,
             lidar_q=new_state.lidar_q, lidar_p=new_state.lidar_p,
-            world_xyz=out_cloud, world_valid=prep.valid,
-            scan_stamp=scan_stamp, sweep_end=sweep_end,
-            is_keyframe=is_kf, processed=enough_points, deskew_ok=deskew_ok,
+            world_xyz=out_cloud, world_valid=f.world_valid,
+            scan_stamp=scan_stamp, sweep_end=f.sweep_end,
+            is_keyframe=is_kf, processed=f.enough_points,
+            deskew_ok=f.deskew_ok,
             gicp_iterations=diag[0], gicp_error=diag[1], num_corr=diag[2])
         return new_state, out
 
+    step.front, step.front_captures, step.front_replays = front, 0, 0
     return step
 
 
@@ -783,14 +925,18 @@ def make_map_fuse(cfg: DlioConfig):
 def make_slam_step(cfg: DlioConfig, syncs: HostSyncs | None = None,
                    align_fn=None):
     """Odometry + dense-map fusion (``make_map_fuse``):
-    ``step((odom_state, map_state), inp) -> ((odom_state, map_state), out)``.
-    """
+    ``step((odom_state, map_state), inp) -> ((odom_state, map_state), out)``,
+    with the odometry step's ``front``, ``front_captures`` and
+    ``front_replays``."""
     fuse = make_map_fuse(cfg)
     odo = make_odometry_step(cfg, syncs, align_fn)
 
     def step(carry, inp: StepInput):
         odom_state, map_state = carry
         odom_state, out = odo(odom_state, inp)
+        step.front_captures = odo.front_captures
+        step.front_replays = odo.front_replays
         return (odom_state, fuse(map_state, out)), out
 
+    step.front, step.front_captures, step.front_replays = odo.front, 0, 0
     return step

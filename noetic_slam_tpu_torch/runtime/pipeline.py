@@ -100,6 +100,16 @@ class OdometryPipeline:
         """Device->host reads that steered control flow so far."""
         return self._syncs.n
 
+    @property
+    def front_captures(self) -> int:
+        """CUDA graphs captured of the step's front (0 off the card)."""
+        return self._step.front_captures
+
+    @property
+    def front_replays(self) -> int:
+        """Replays of the step's front graphs (0 off the card)."""
+        return self._step.front_replays
+
     # ------------------------------------------------------------------ IMU
     def push_imu(self, stamp: float, ang_vel, lin_accel) -> None:
         """Feed one raw IMU sample (absolute stamp, sensor frame)."""

@@ -205,11 +205,23 @@ def test_slam_run_bitwise_and_counts_agree():
     under = [r for r in records if root[r.id] is not None]
     assert all(r.scan == root[r.id].scan for r in under)
     names = {r.name for r in under}
-    assert {"odometry.pack", "odometry.intake_deskew", "odometry.gicp",
-            "odometry.gicp.correspond", "odometry.gicp.linearize",
-            "odometry.gicp.lm", "odometry.host_read",
-            "odometry.keyframe_submap", "odometry.submap_gather",
-            "tsdf.fuse"} <= names
+    assert {"odometry.pack", "odometry.front", "odometry.intake_deskew",
+            "odometry.gicp", "odometry.gicp.correspond",
+            "odometry.gicp.linearize", "odometry.gicp.lm",
+            "odometry.host_read", "odometry.keyframe_submap",
+            "odometry.submap_gather", "tsdf.fuse"} <= names
+    # the front's four spans nest in one odometry.front a scan, which
+    # opens in the scan's root
+    by_id = {r.id: r for r in records}
+    nests = {f"{by_id[r.parent].name}>{r.name}" for r in under
+             if r.parent in by_id}
+    inner = ("odometry.intake_deskew", "odometry.voxel",
+             "odometry.covariances", "odometry.propagate")
+    assert ({"pipeline.scan>odometry.front"}
+            | {f"odometry.front>{k}" for k in inner}) <= nests
+    assert all(by_id[r.parent].name == "odometry.front" for r in under
+               if r.name in inner)
+    assert sum(r.name == "odometry.front" for r in under) == n
     # one correspond span per outer GICP iteration of each scan; one
     # host_read span per counted host read of the odometry
     traj = on.odometry.trajectory
